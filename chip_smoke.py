@@ -1,5 +1,5 @@
-"""Drive the port's pairwise ungapped main path once on one NVIDIA GPU and
-check it.
+"""Drive the port's paths once on one NVIDIA GPU and check them: the
+pairwise ungapped main path on both seeding routes, and the repeat masker.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,30 @@ last line, and without CUDA the script fails at once:
   0. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, nvcc, and the build times of the CUDA kernels and of
      the shared native host library (both built from this checkout);
-  1. every kernel of the path against its plain PyTorch version on the
-     card, at the shapes the main path gives it, with exact equality (the
+  1. every kernel of the paths against its plain PyTorch version on the
+     card, at the shapes the paths give it, with exact equality (the
      values are integers), and each one's time beside the plain version's
      (CUDA events, after a warmup, measured plain, kernel, kernel, plain);
+     K5 (window_scan_wide) at the device route's first window (2^17 rows,
+     tile 0, fresh state) and at a continuation (16384 rows, tile 2048,
+     half alive);
   2. the slice at full size: DeviceAligner.map_chunks over both strands of
      every 250 kb chunk of bench.py's repeat-1x pair (4 Mbp x 4 Mbp,
      rng 2024) with bench.make_aligner's settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
      run must be above 0;
+  2b. the same slice on the device-seeding route
+     (DeviceAligner(device_seeding=True)): the same HSP arrays per
+     chunk-strand, with window_scan_wide launched;
   3. the CLI: python -m segalign_tpu_torch.cli.run_segalign on a FASTA
      pair made from a fixed seed, whose segments file must hash to what
      the JAX CLI (python -m segalign_tpu.cli.run_segalign) writes for it;
+  3b. the repeat-masker CLI (segalign_tpu_torch.cli.run_segalign_repeat_
+     masker) on a FASTA made from a fixed seed, on both seeding routes:
+     each output must hash to what the JAX RM CLI writes for it;
+  3c. the repeat masker at real size: run_repeat_masker with RMConfig's
+     defaults on bench.py's repeat-1x 4 Mbp reference written as a FASTA,
+     on both routes, whose interval files must be byte-identical;
   4. the kernels as one JSON line, then the result as the last line.
 
 Imports no jax. Besides the port it uses only the jax-free host modules of
@@ -33,6 +45,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -44,6 +57,12 @@ EXPECTED_HSPS = 8351  # the JAX package's output on the repeat-1x pair
 # --output out.segments --markend` on write_cli_pair's files
 CLI_SHA256 = ("b22745639ef85cc28e256df51fcea5fb"
               "343cc6d46ea460e791265720ff7b6965")
+# sha256 of `segalign_tpu.cli.run_segalign_repeat_masker seq.fa --output
+# out.seg --markend` on write_rm_genome's file
+RM_CLI_SHA256 = ("1fc0f6b707ea7caa71c6ffa90efa9fa5"
+                 "1cc47817aabff211cfcade08ab90a80e")
+# genome length of phase 3c (bench.py's repeat-1x reference, not cut)
+RM_REAL_LEN = 4_000_000
 
 
 def fail(msg: str):
@@ -87,6 +106,41 @@ def write_cli_pair(d: str):
     write_fasta(os.path.join(d, "query.fa"),
                 [("q1", text(qry[0], [(40_000, 900)], [(10_000, 200)])),
                  ("q2", text(qry[1], [], [(30_000, 100)]))])
+
+
+def write_rm_genome(d: str):
+    """A three-chromosome FASTA from a fixed seed for the repeat masker:
+    interspersed copies of three repeat families at 80-95% identity on
+    both strands, soft-masked runs every few kb and N gaps."""
+    import numpy as np
+    from segalign_tpu.io.fasta import write_fasta
+    rng = np.random.default_rng(91)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fams = [rng.integers(0, 4, n) for n in (300, 800, 2000)]
+    recs = []
+    for k, n in enumerate((100_000, 70_000, 40_000)):
+        c = rng.integers(0, 4, n)
+        for _ in range(n // 4000):
+            fam = fams[int(rng.integers(0, len(fams)))]
+            take = int(rng.integers(len(fam) // 2, len(fam) + 1))
+            piece = fam[:take].copy()
+            mut = rng.random(take) < rng.uniform(0.05, 0.20)
+            piece[mut] = (piece[mut] + rng.integers(1, 4, mut.sum())) % 4
+            if rng.random() < 0.5:
+                piece = 3 - piece[::-1]   # reverse complement in 0..3 codes
+            p = int(rng.integers(0, n - take))
+            c[p:p + take] = piece
+        s = bytearray(acgt[c].tobytes())
+        p = int(rng.integers(0, 3000))
+        while p < n:
+            ln = int(rng.integers(30, 300))
+            s[p:p + ln] = s[p:p + ln].lower()
+            p += ln + int(rng.integers(1500, 4500))
+        for _ in range(2):
+            a, ln = int(rng.integers(0, n - 500)), int(rng.integers(100, 500))
+            s[a:a + ln] = b"N" * ln
+        recs.append((f"chr{k + 1}", s.decode()))
+    write_fasta(os.path.join(d, "seq.fa"), recs)
 
 
 def _ms(fn, reps: int) -> float:
@@ -151,12 +205,16 @@ def main():
         first_scan_plain
     from segalign_tpu_torch.ops.gather import gather_rows, \
         gather_rows_plain, gather_rows_tile
+    from segalign_tpu_torch.ops.extend3 import init_state
     from segalign_tpu_torch.ops.window_scan import window_scan, \
         window_scan_plain
+    from segalign_tpu_torch.ops.window_scan_wide import window_scan_wide, \
+        window_scan_wide_plain
     from segalign_tpu_torch.parallel.multi import ChunkWork
     from segalign_tpu_torch.pipeline.device import (CONT_W, FIRST_W, PAD,
                                                     DeviceAligner)
-    from segalign_tpu.config import build_substitution_matrix, \
+    from segalign_tpu_torch.pipeline.repeat_masker import run_repeat_masker
+    from segalign_tpu.config import RMConfig, build_substitution_matrix, \
         make_seed_config
     from segalign_tpu.io.encode import revcomp_codes
     import bench
@@ -292,6 +350,45 @@ def main():
                     f"(alive on entry {int((~st['done']).sum())})", err,
                     *_time_pair(lambda: window_scan(*args, **kw),
                                 lambda: window_scan_plain(*args, **kw), 10))
+
+    def check_wide(lr, lq, st, tile, left, wc, label, reps):
+        """K5 on the route's windows: a gather, flipped to the left."""
+        off = -tile - Wc if left else tile
+        r = gather_rows(ref_w, pad + lr + off, Wc)
+        q = gather_rows(q_w, pad + lq + off, Wc)
+        if left:
+            r, q = r.flip(1), q.flip(1)
+        args = (r, q, lr, lq, st, sub, 910, tile, n_r, n_q)
+        kw = dict(W=Wc, left=left, with_counts=wc)
+        got = window_scan_wide(*args, **kw)
+        err = _state_err(got, window_scan_wide_plain(*args, **kw))
+        K.check("window_scan_wide",
+                f"B={lr.numel()} W={Wc} tile={tile} "
+                f"{'left' if left else 'right'} "
+                f"counts={'on' if wc else 'off'} {label} (alive after "
+                f"{int((~got['done']).sum())})", err,
+                *_time_pair(lambda: window_scan_wide(*args, **kw),
+                            lambda: window_scan_wide_plain(*args, **kw),
+                            reps))
+        return got
+
+    for wc in (False, True):
+        for left in (False, True):
+            # the route's first window: every hit, fresh state
+            st = check_wide(loc_r, loc_q,
+                            init_state(B, 0 if left else -1, valid, dev), 0,
+                            left, wc, "fresh", 3)
+            # its survivors first, then rows it finished, carried on
+            rows = torch.cat([torch.nonzero(~st["done"]).squeeze(1),
+                              torch.nonzero(st["done"]).squeeze(1)])[:Bc]
+            st = {k: v[rows] for k, v in st.items()}
+            lr, lq = loc_r[rows], loc_q[rows]
+            lr[:6] = torch.tensor([0, 1, 700, n_r - 1, n_r - 2, n_r - 900])
+            lq[:6] = torch.tensor([n_q - 3, 2, 0, 5, n_q - 1, n_q - 600])
+            st["done"][:Bc // 2] = False
+            check_wide(lr, lq, st, Wc, left, wc,
+                       f"carried (alive on entry "
+                       f"{int((~st['done']).sum())})", 10)
     del ref_w, q_w, first
     torch.cuda.empty_cache()
 
@@ -303,7 +400,8 @@ def main():
             for cs in range(0, q_len, CHUNK) for rev in (False, True)]
     wrappers = dict(gather_rows=gather_rows,
                     gather_rows_tile=gather_rows_tile,
-                    first_scan=first_scan, window_scan=window_scan)
+                    first_scan=first_scan, window_scan=window_scan,
+                    window_scan_wide=window_scan_wide)
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -330,10 +428,49 @@ def main():
           f"launches {launches} [{card}]", flush=True)
     if n_hsps != EXPECTED_HSPS:
         fail(f"{n_hsps} HSPs, expected {EXPECTED_HSPS}")
-    for k, v in launches.items():
-        if v == 0:
+    for k in ("gather_rows", "gather_rows_tile", "first_scan",
+              "window_scan"):
+        if launches[k] == 0:
             fail(f"{k} was not launched on the main path")
-    del al, results
+
+    # ---- phase 2b: the device-seeding route on the same slice
+    print("phase 2b: DeviceAligner(device_seeding=True).map_chunks over "
+          "the repeat-1x pair", flush=True)
+    t0 = time.time()
+    al_d = DeviceAligner(shape_pos=sc.shape_pos, seed_size=sc.size,
+                         transition=True, step=1, sub_mat=sub_mat,
+                         xdrop=910, hspthresh=3000, noentropy=False,
+                         chunk_size=CHUNK, device=dev, device_seeding=True)
+    al_d.set_ref(ref, tables=al._host_tables)
+    al_d.set_query(query, qrc)
+    print(f"device route set-up (tables and queries to the card) "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del al
+    torch.cuda.empty_cache()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    results_d = al_d.map_chunks(work)
+    torch.cuda.synchronize()
+    dt_d = time.time() - t0
+    launches_d = {k: w.launches for k, w in wrappers.items()}
+    n_d = sum(len(r.hsps) for r in results_d)
+    print(f"device route: {n_d} HSPs, wall {dt_d:.3f} s, "
+          f"{len(query) / 1e6 / dt_d:.3f} Mbp/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+          f"launches {launches_d} [{card}]", flush=True)
+    for w, a, b in zip(work, results, results_d):
+        if (a.num_hits, a.num_seeds) != (b.num_hits, b.num_seeds) or \
+                not np.array_equal(a.hsps, b.hsps):
+            fail(f"device route differs from the native route on chunk "
+                 f"{w.chunk_start}:{w.chunk_end} rev={w.rev}")
+    if n_d != EXPECTED_HSPS:
+        fail(f"device route: {n_d} HSPs, expected {EXPECTED_HSPS}")
+    if launches_d["window_scan_wide"] == 0:
+        fail("window_scan_wide was not launched on the device route")
+    del al_d, results, results_d
     torch.cuda.empty_cache()
 
     # ---- phase 3: the CLI
@@ -362,19 +499,96 @@ def main():
     if digest != CLI_SHA256:
         fail(f"CLI output sha256 {digest} != {CLI_SHA256}")
 
+    # ---- phase 3b: the RM CLI on both routes
+    print("phase 3b: the RM CLI on a fixed FASTA, both seeding routes",
+          flush=True)
+    write_rm_genome(d)
+    for route, extra in (("native", {}),
+                         ("device", {"SEGALIGN_DEVICE_SEEDING": "1"})):
+        out = os.path.join(d, f"rm_{route}.seg")
+        if os.path.exists(out):
+            os.remove(out)
+        t0 = time.time()
+        cli = subprocess.run(
+            [sys.executable, "-m",
+             "segalign_tpu_torch.cli.run_segalign_repeat_masker",
+             os.path.join(d, "seq.fa"), "--output", out, "--markend"],
+            cwd=d, env=dict(env, **extra), capture_output=True, text=True,
+            timeout=600)
+        if cli.returncode != 0:
+            fail(f"RM CLI ({route}) exited {cli.returncode}:\n"
+                 f"{cli.stderr[-3000:]}")
+        with open(out, "rb") as f:
+            data = f.read()
+        digest = hashlib.sha256(data).hexdigest()
+        n_iv = data.count(b"\n") - 2   # less the header and the end mark
+        print(f"rm cli ({route} route): {n_iv} intervals "
+              f"in {time.time() - t0:.1f} s, sha256 {digest}", flush=True)
+        if digest != RM_CLI_SHA256:
+            fail(f"RM CLI ({route}) sha256 {digest} != {RM_CLI_SHA256}")
+
+    # ---- phase 3c: the repeat masker at real size, both routes
+    print("phase 3c: run_repeat_masker on bench.py's repeat-1x reference",
+          flush=True)
+    from segalign_tpu.io.fasta import write_fasta
+    genome = ref[:RM_REAL_LEN]
+    if len(genome) < len(ref):
+        print(f"genome cut to {len(genome)} of {len(ref)} bases", flush=True)
+    fa = os.path.join(d, "rm_ref.fa")
+    write_fasta(fa, [("ref", np.frombuffer(b"ACGTaNX&", np.uint8)[
+        genome].tobytes())])
+    cfg = RMConfig(seq_filename=fa)
+    got = {}
+    for route in ("native", "device"):
+        out_dir = os.path.join(d, f"rm_{route}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        st = run_repeat_masker(cfg, out_dir, device=dev,
+                               device_seeding=route == "device")
+        torch.cuda.synchronize()
+        dt_rm = time.time() - t0
+        files = {}
+        for f in sorted(os.listdir(out_dir)):
+            if f != "MANIFEST.jsonl":
+                with open(os.path.join(out_dir, f), "rb") as fh:
+                    files[f] = fh.read()
+        got[route] = files
+        n_iv = sum(v.count(b"\n") for v in files.values())
+        print(f"rm {route} route: {len(genome) / 1e6:.1f} Mbp, {n_iv} "
+              f"intervals, {st.num_seed_hits} hits, {st.num_hsps} HSPs, "
+              f"wall {dt_rm:.3f} s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+              f"launches {dict((k, w.launches) for k, w in wrappers.items())}"
+              f" [{card}]", flush=True)
+        if n_iv == 0:
+            fail(f"rm {route} route wrote no intervals")
+    if got["native"] != got["device"]:
+        fail("the repeat masker's interval files differ between routes")
+
     # ---- phase 4: results
     rows = []
     sources = dict(gather_rows="segalign_tpu_torch/csrc/gather.cu",
                    gather_rows_tile="segalign_tpu_torch/csrc/gather.cu",
                    first_scan="segalign_tpu_torch/csrc/first_scan.cu",
-                   window_scan="segalign_tpu_torch/csrc/window_scan.cu")
+                   window_scan="segalign_tpu_torch/csrc/window_scan.cu",
+                   window_scan_wide=(
+                       "segalign_tpu_torch/csrc/window_scan_wide.cu"))
     replaces = dict(
         gather_rows="segalign_tpu/ops/extend_pallas.py:469",
         gather_rows_tile="segalign_tpu/ops/extend_pallas.py:553",
         first_scan="segalign_tpu/ops/extend_pallas.py:363",
-        window_scan="segalign_tpu/ops/extend_tiled.py:261")
+        window_scan="segalign_tpu/ops/extend_tiled.py:261",
+        window_scan_wide="segalign_tpu/ops/extend_pallas.py:212")
+    # each kernel's launches on its path: phase 2 for K1-K4, phase 2b
+    # (the device-seeding route) for K5
+    launches["window_scan_wide"] = launches_d["window_scan_wide"]
     for name in ("first_scan", "gather_rows", "gather_rows_tile",
-                 "window_scan"):
+                 "window_scan", "window_scan_wide"):
         r = K.rows[name]
         rows.append(dict(name=name, route="cuda", source=sources[name],
                          replaces=replaces[name], launches=launches[name],

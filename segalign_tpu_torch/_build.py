@@ -4,7 +4,8 @@ Two libraries, each keyed by a hash of its sources and flags and built
 into build/segalign_tpu_torch/ at the root of the checkout:
 
   - the CUDA kernels, from segalign_tpu_torch/csrc/*.cu, with nvcc for
-    sm_90a. Every source exports a plain `extern "C"` launcher that takes a
+    sm_90a: one nvcc per source, all started together, then one link.
+    Every source exports a plain `extern "C"` launcher that takes a
     cudaStream_t and returns cudaGetLastError(); nothing includes PyTorch's
     headers, which keeps the build short.
   - the shared native host library of segalign_tpu (seeder, dedup,
@@ -34,7 +35,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(_ROOT, "build", "segalign_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _P = ctypes.c_void_p
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "sa_gather_rows_tile": [_P, ctypes.c_int64, _P, _I, _I, _I, _P, _P],
     "sa_first_scan": [_P] * 6 + [_I] * 6 + [_P] * 13,
     "sa_window_scan": [_P] * 11 + [_I] * 8 + [_P] * 7,
+    "sa_window_scan_wide": [_P] * 11 + [_I] * 8 + [_P] * 7,
 }
 
 _lock = threading.Lock()
@@ -87,9 +89,24 @@ def kernels_path() -> str:
     srcs = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
     deps = srcs + sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
     out = os.path.join(BUILD_DIR, f"kernels-{_digest(deps, NVCC_FLAGS)}.so")
-    if not os.path.exists(out):
-        _compile([nvcc_path(), *NVCC_FLAGS, "-I",
-                  os.path.join(_PKG, "csrc")], srcs, out)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, os.path.basename(s) + ".o")
+                for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", os.path.join(_PKG, "csrc"), "-c", s,
+             "-o", o], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for s, o in zip(srcs, objs)]
+        # wait for every compiler before raising for any of them
+        errs = [p.communicate()[1] for p in procs]
+        for s, p, err in zip(srcs, procs, errs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(s)} "
+                                   f"(exit {p.returncode}):\n{err}")
+        _compile([nvcc, "-shared"], objs, out)
     return out
 
 

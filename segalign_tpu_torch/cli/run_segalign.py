@@ -4,9 +4,11 @@ Counterpart of segalign_tpu/cli/run_segalign.py, with the same options and
 exit codes (4 file not found, 5 permissions, 6 LASTZ failure, 8 2bit
 conversion failed), the same LASTZ pool or native gapped stage and the same
 sort -V merge, all shared with the JAX package; the ungapped stage is the
-port's run_pairwise. One option is the port's own: --device, the torch
+port's run_pairwise. Two choices are the port's own: --device, the torch
 device of the ungapped stage (default cuda; the run fails when CUDA is not
-available rather than running elsewhere).
+available rather than running elsewhere), and the JAX package's
+SEGALIGN_DEVICE_SEEDING=1, which here selects the aligner's device-seeding
+route explicitly.
 """
 
 from __future__ import annotations
@@ -107,8 +109,9 @@ def main(argv=None) -> int:
                 else (lambda cmd: None))
 
         from ..pipeline.pairwise import run_pairwise
-        run_pairwise(cfg, out_dir, device=device, emit=emit,
-                     resume=args.resume)
+        run_pairwise(
+            cfg, out_dir, device=device, emit=emit, resume=args.resume,
+            device_seeding=os.environ.get("SEGALIGN_DEVICE_SEEDING") == "1")
         pool.wait_all()
 
         shutil.rmtree(data_dir, ignore_errors=True)

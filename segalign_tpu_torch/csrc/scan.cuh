@@ -1,5 +1,6 @@
 // One x-drop window of one extension direction for one row, walked lane by
-// lane by one thread. Shared by first_scan.cu (K1) and window_scan.cu (K4).
+// lane by one thread. Shared by first_scan.cu (K1), window_scan.cu (K4) and
+// window_scan_wide.cu (K5).
 //
 // The recurrence is the scan form of oracle/scan_spec.py, with the carried
 // state of ops/extend3.py's window step, in int32 with wraparound:
@@ -154,6 +155,80 @@ __device__ void scan_window(const uint8_t* __restrict__ r,
 __device__ __forceinline__ void load_sub(int32_t* dst, const int32_t* src) {
   for (int i = threadIdx.x; i < 64; i += blockDim.x) dst[i] = src[i];
   __syncthreads();
+}
+
+// One window of each row from its carried state (K4, K5). RAW: the window
+// is in ascending storage order and a left one is walked from its last
+// byte (K4); otherwise both directions are in extension order (K5). Either
+// way the first lane walked is extension offset tile (right) or tile + 1
+// (left). Rows done on entry pass through unchanged.
+template <bool RAW>
+__global__ void carried_scan_kernel(
+    const uint8_t* __restrict__ r, const uint8_t* __restrict__ q,
+    const int32_t* __restrict__ loc_r, const int32_t* __restrict__ loc_q,
+    const int32_t* __restrict__ cum, const int32_t* __restrict__ maxv,
+    const int32_t* __restrict__ maxp, const bool* __restrict__ done,
+    const int32_t* __restrict__ counts, const int32_t* __restrict__ cdel,
+    const int32_t* __restrict__ sub_g, int B, int W, int32_t xdrop,
+    int32_t tile, int32_t ref_len, int32_t query_len, bool left,
+    bool with_counts, State out) {
+  __shared__ int32_t sub[64];
+  load_sub(sub, sub_g);
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  if (done[row]) {
+    out.done[row] = true;
+    out.cum[row] = cum[row];
+    out.maxv[row] = maxv[row];
+    out.maxp[row] = maxp[row];
+    for (int b = 0; b < 4; ++b) {
+      out.counts[row * 4 + b] = counts[row * 4 + b];
+      out.cdel[row * 4 + b] = cdel[row * 4 + b];
+    }
+    return;
+  }
+  const int64_t lr = loc_r[row], lq = loc_q[row];
+  const size_t base = static_cast<size_t>(row) * W;
+  if (left) {
+    const int64_t lim = (lr < lq ? lr : lq) + 1;
+    scan_window<RAW>(r + base, q + base, W, sub, xdrop, tile + 1, lim,
+                     cum[row], maxv[row], maxp[row], counts + row * 4,
+                     cdel + row * 4, with_counts, out, row);
+  } else {
+    const int64_t a = ref_len - lr, b = query_len - lq;
+    scan_window<false>(r + base, q + base, W, sub, xdrop, tile,
+                       a < b ? a : b, cum[row], maxv[row], maxp[row],
+                       counts + row * 4, cdel + row * 4, with_counts, out,
+                       row);
+  }
+}
+
+// The launcher body of K4 and K5: 128 rows per block.
+template <bool RAW>
+cudaError_t launch_carried_scan(
+    const void* r, const void* q, const void* loc_r, const void* loc_q,
+    const void* cum, const void* maxv, const void* maxp, const void* done,
+    const void* counts, const void* cdel, const void* sub, int B, int W,
+    int xdrop, int tile, int ref_len, int query_len, int left,
+    int with_counts, void* o_done, void* o_cum, void* o_maxv, void* o_maxp,
+    void* o_counts, void* o_cdel, void* stream) {
+  const State out{static_cast<bool*>(o_done), static_cast<int32_t*>(o_cum),
+                  static_cast<int32_t*>(o_maxv),
+                  static_cast<int32_t*>(o_maxp),
+                  static_cast<int32_t*>(o_counts),
+                  static_cast<int32_t*>(o_cdel)};
+  if (B == 0) return cudaSuccess;
+  const int threads = 128;
+  carried_scan_kernel<RAW><<<(B + threads - 1) / threads, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(r), static_cast<const uint8_t*>(q),
+      static_cast<const int32_t*>(loc_r), static_cast<const int32_t*>(loc_q),
+      static_cast<const int32_t*>(cum), static_cast<const int32_t*>(maxv),
+      static_cast<const int32_t*>(maxp), static_cast<const bool*>(done),
+      static_cast<const int32_t*>(counts), static_cast<const int32_t*>(cdel),
+      static_cast<const int32_t*>(sub), B, W, xdrop, tile, ref_len, query_len,
+      left != 0, with_counts != 0, out);
+  return cudaGetLastError();
 }
 
 }  // namespace sa

@@ -8,59 +8,16 @@
 // already done pass through unchanged.
 //
 // Bound on the H100: as for K1, a dependent chain per lane; one thread walks
-// one row's 2048 lanes in order, in 16-byte loads. The cohort is at most a
-// few ten thousand rows, so the launch is latency bound: done rows exit at
-// once, and a row stops reading past its last in-bounds lane. The TPU
-// kernel's shortcuts (a bf16 matmul prefix sum, 16-bit packed count sums)
-// are not carried over: sums here are exact int32.
+// one row's 2048 lanes in order, in 16-byte loads (scan.cuh,
+// carried_scan_kernel). The cohort is at most a few ten thousand rows, so
+// the launch is latency bound: done rows exit at once, and a row stops
+// reading past its last in-bounds lane. The TPU kernel's shortcuts (a bf16
+// matmul prefix sum, 16-bit packed count sums) are not carried over: sums
+// here are exact int32.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
-
-namespace {
-
-__global__ void window_scan_kernel(
-    const uint8_t* __restrict__ r, const uint8_t* __restrict__ q,
-    const int32_t* __restrict__ loc_r, const int32_t* __restrict__ loc_q,
-    const int32_t* __restrict__ cum, const int32_t* __restrict__ maxv,
-    const int32_t* __restrict__ maxp, const bool* __restrict__ done,
-    const int32_t* __restrict__ counts, const int32_t* __restrict__ cdel,
-    const int32_t* __restrict__ sub_g, int B, int W, int32_t xdrop,
-    int32_t tile, int32_t ref_len, int32_t query_len, bool left,
-    bool with_counts, sa::State out) {
-  __shared__ int32_t sub[64];
-  sa::load_sub(sub, sub_g);
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  if (done[row]) {
-    out.done[row] = true;
-    out.cum[row] = cum[row];
-    out.maxv[row] = maxv[row];
-    out.maxp[row] = maxp[row];
-    for (int b = 0; b < 4; ++b) {
-      out.counts[row * 4 + b] = counts[row * 4 + b];
-      out.cdel[row * 4 + b] = cdel[row * 4 + b];
-    }
-    return;
-  }
-  const int64_t lr = loc_r[row], lq = loc_q[row];
-  const size_t base = static_cast<size_t>(row) * W;
-  if (left) {
-    const int64_t lim = (lr < lq ? lr : lq) + 1;
-    sa::scan_window<true>(r + base, q + base, W, sub, xdrop, tile + 1, lim,
-                          cum[row], maxv[row], maxp[row], counts + row * 4,
-                          cdel + row * 4, with_counts, out, row);
-  } else {
-    const int64_t a = ref_len - lr, b = query_len - lq;
-    sa::scan_window<false>(r + base, q + base, W, sub, xdrop, tile,
-                           a < b ? a : b, cum[row], maxv[row], maxp[row],
-                           counts + row * 4, cdel + row * 4, with_counts,
-                           out, row);
-  }
-}
-
-}  // namespace
 
 extern "C" cudaError_t sa_window_scan(
     const void* r, const void* q, const void* loc_r, const void* loc_q,
@@ -69,22 +26,8 @@ extern "C" cudaError_t sa_window_scan(
     int xdrop, int tile, int ref_len, int query_len, int left,
     int with_counts, void* o_done, void* o_cum, void* o_maxv, void* o_maxp,
     void* o_counts, void* o_cdel, void* stream) {
-  const sa::State out{static_cast<bool*>(o_done),
-                      static_cast<int32_t*>(o_cum),
-                      static_cast<int32_t*>(o_maxv),
-                      static_cast<int32_t*>(o_maxp),
-                      static_cast<int32_t*>(o_counts),
-                      static_cast<int32_t*>(o_cdel)};
-  if (B == 0) return cudaSuccess;
-  const int threads = 128;
-  window_scan_kernel<<<(B + threads - 1) / threads, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(r), static_cast<const uint8_t*>(q),
-      static_cast<const int32_t*>(loc_r), static_cast<const int32_t*>(loc_q),
-      static_cast<const int32_t*>(cum), static_cast<const int32_t*>(maxv),
-      static_cast<const int32_t*>(maxp), static_cast<const bool*>(done),
-      static_cast<const int32_t*>(counts), static_cast<const int32_t*>(cdel),
-      static_cast<const int32_t*>(sub), B, W, xdrop, tile, ref_len, query_len,
-      left != 0, with_counts != 0, out);
-  return cudaGetLastError();
+  return sa::launch_carried_scan<true>(
+      r, q, loc_r, loc_q, cum, maxv, maxp, done, counts, cdel, sub, B, W,
+      xdrop, tile, ref_len, query_len, left, with_counts, o_done, o_cum,
+      o_maxv, o_maxp, o_counts, o_cdel, stream);
 }

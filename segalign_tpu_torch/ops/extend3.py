@@ -4,11 +4,14 @@ the oracle of every scan kernel.
 Counterpart of segalign_tpu/ops/extend3.py. window_step has the semantics
 of _extension_window_step_lean: gather one W-wide window per hit at offset
 `tile` from its anchor, mask it to the sequence bounds, scan it, and update
-the carried state of the rows still alive. scan_raw_window is the step
-without the gather: the plain version of the continuation kernel
-(ops/window_scan.py) and, at tile 0 from a fresh state, of each half of
-the first-window kernel (ops/first_scan.py). scan_window is the scan in
-extension order under both.
+the carried state of the rows still alive. scan_ext_window is the step
+without the gather, on windows in extension order: the plain version of
+the wide window kernel (ops/window_scan_wide.py). scan_raw_window takes
+raw windows in storage order: the plain version of the continuation
+kernel (ops/window_scan.py) and, at tile 0 from a fresh state, of each half
+of the first-window kernel (ops/first_scan.py). scan_window is the scan
+under all of them. extend_hits_windowed is the host-stepped engine of the
+device-seeding route.
 
 The state of one direction is a dict of tensors: done (B,) bool; cum,
 maxv, maxp (B,) int32; counts, cdel (B, 4) int32. Everything is int32 with
@@ -80,16 +83,15 @@ def scan_window(r, q, p, inb, edge, st, sub, xdrop: int,
         cdel=torch.where(al2, cdel, st["cdel"]))
 
 
-def scan_raw_window(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
+def scan_ext_window(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
                     ref_len: int, query_len: int, *, W: int, left: bool,
                     with_counts: bool):
-    """Scan raw (B, W) windows in ascending storage order: [loc + tile,
-    loc + tile + W) to the right, or [loc - tile - W, loc - tile) to the
-    left, scanned from its last byte down (extension offset p = tile + W -
-    f at storage lane f). Returns the new state dict."""
+    """Scan (B, W) windows in extension order: lane k is extension offset
+    tile + k to the right and tile + 1 + k to the left. The in-bounds mask
+    and the edge test (the last lane is out of bounds) come from the
+    anchors. Returns the new state dict."""
     lanes = torch.arange(W, device=r.device, dtype=torch.int32)
     if left:
-        r, q = r.flip(1), q.flip(1)
         p = (tile + 1 + lanes)[None, :]
         inb = (loc_r[:, None] >= p) & (loc_q[:, None] >= p)
         edge = (loc_r < tile + W) | (loc_q < tile + W)
@@ -100,6 +102,20 @@ def scan_raw_window(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
         edge = (loc_r + tile + (W - 1) >= ref_len) | \
                (loc_q + tile + (W - 1) >= query_len)
     return scan_window(r, q, p, inb, edge, st, sub, xdrop, with_counts)
+
+
+def scan_raw_window(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
+                    ref_len: int, query_len: int, *, W: int, left: bool,
+                    with_counts: bool):
+    """Scan raw (B, W) windows in ascending storage order: [loc + tile,
+    loc + tile + W) to the right, or [loc - tile - W, loc - tile) to the
+    left, scanned from its last byte down (extension offset p = tile + W -
+    f at storage lane f). Returns the new state dict."""
+    if left:
+        r, q = r.flip(1), q.flip(1)
+    return scan_ext_window(r, q, loc_r, loc_q, st, sub, xdrop, tile,
+                           ref_len, query_len, W=W, left=left,
+                           with_counts=with_counts)
 
 
 def window_step(seq_r_pad, seq_q_pad, loc_r, loc_q, tile: int, state, sub,
@@ -159,6 +175,36 @@ def finalize(valid, loc_r, loc_q, r_maxv, r_maxp, l_maxv, l_maxp, counts,
         length=torch.where(valid, r_maxp + l_maxp, -1),
         total=torch.where(valid, total, zero),
         counts=torch.where(valid[:, None], counts, 0))
+
+
+def extend_hits_windowed(ref_pad, query_pad, ref_loc, query_loc, valid, sub,
+                         xdrop: int, hspthresh: int, ref_len: int,
+                         query_len: int, *, pad: int, W: int):
+    """Extend every valid hit in both directions; the fields dict of
+    finalize (counterpart of segalign_tpu's extend3.extend_hits_windowed).
+
+    Each direction starts from a fresh state and steps W-wide windows at
+    tile = k * W (a gather, then window_scan_wide) over the rows still
+    alive, until none is. The right direction runs first, from maxp = -1
+    and zero counts; the left one from maxp = 0 and the right direction's
+    counts, which it finishes with. Counts are on: the route finalizes
+    entropy from them. The JAX engine's CONT-row compaction is scheduling
+    and has no counterpart (every step runs on the alive rows only)."""
+    # imported here: extend_fused imports this module
+    from .extend_fused import run_survivors
+    B, dev = ref_loc.shape[0], ref_loc.device
+    loc_r = torch.where(valid, ref_loc, 0)
+    loc_q = torch.where(valid, query_loc, 0)
+    kw = dict(pad=pad, tile=0, W=W, with_counts=True, wide=True)
+    st_r = run_survivors(ref_pad, query_pad, loc_r, loc_q,
+                         init_state(B, -1, valid, dev), sub, xdrop, ref_len,
+                         query_len, left=False, **kw)
+    st_l = init_state(B, 0, valid, dev)
+    st_l["counts"] = st_r["counts"].clone()
+    st_l = run_survivors(ref_pad, query_pad, loc_r, loc_q, st_l, sub, xdrop,
+                         ref_len, query_len, left=True, **kw)
+    return finalize(valid, loc_r, loc_q, st_r["maxv"], st_r["maxp"],
+                    st_l["maxv"], st_l["maxp"], st_l["counts"], hspthresh)
 
 
 def state_from_numpy(st, device="cpu"):

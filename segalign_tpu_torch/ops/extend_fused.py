@@ -30,31 +30,37 @@ from .extend3 import STATE_KEYS, finalize
 from .first_scan import first_scan
 from .gather import gather_rows, gather_rows_tile
 from .window_scan import window_scan
+from .window_scan_wide import window_scan_wide
 
 Q_TILE = 64    # staged rows of 128 bytes for query-side first windows
 R_TILE = 512   # and for clustered reference-side ones
 
 
-def _continue(seq_r, seq_q, loc_r, loc_q, st, sub, xdrop, ref_len,
-              query_len, *, pad, tile, Wc, left, with_counts):
-    """Run the alive rows of one direction to completion. Updates and
-    returns `st` in place (its tensors belong to this batch)."""
+def run_survivors(seq_r, seq_q, loc_r, loc_q, st, sub, xdrop, ref_len,
+                  query_len, *, pad, tile, W, left, with_counts,
+                  wide: bool = False):
+    """Run the alive rows of one direction to completion, W-wide windows
+    from offset `tile` on, compacted to the rows still alive before every
+    step. Each step is a gather (gather_rows) and a scan: window_scan on
+    the raw windows, or with `wide` window_scan_wide on windows in
+    extension order (the left ones flipped). Updates and returns `st` in
+    place (its tensors belong to this batch)."""
+    scan = window_scan_wide if wide else window_scan
     idx = torch.nonzero(~st["done"]).squeeze(1)
     while idx.numel():
         lr, lq = loc_r[idx], loc_q[idx]
-        if left:
-            r_start, q_start = pad + lr - tile - Wc, pad + lq - tile - Wc
-        else:
-            r_start, q_start = pad + lr + tile, pad + lq + tile
-        r = gather_rows(seq_r, r_start, Wc)
-        q = gather_rows(seq_q, q_start, Wc)
-        cst = window_scan(r, q, lr, lq, {k: st[k][idx] for k in STATE_KEYS},
-                          sub, xdrop, tile, ref_len, query_len, W=Wc,
-                          left=left, with_counts=with_counts)
+        off = -tile - W if left else tile
+        r = gather_rows(seq_r, pad + lr + off, W)
+        q = gather_rows(seq_q, pad + lq + off, W)
+        if wide and left:
+            r, q = r.flip(1), q.flip(1)
+        cst = scan(r, q, lr, lq, {k: st[k][idx] for k in STATE_KEYS}, sub,
+                   xdrop, tile, ref_len, query_len, W=W, left=left,
+                   with_counts=with_counts)
         for k in STATE_KEYS:
             st[k][idx] = cst[k]
         idx = idx[~cst["done"]]
-        tile += Wc
+        tile += W
     return st
 
 
@@ -85,11 +91,11 @@ def extend_fields_program(ref_pad, query_pad, ref_loc, query_loc, m: int,
     st_r, st_l = first_scan(r2, q2, loc_r, loc_q, valid, sub, xdrop, ref_len,
                             query_len, W=W, with_counts=with_counts)
     del r2, q2
-    kw = dict(pad=pad, tile=W, Wc=W_CONT, with_counts=with_counts)
-    st_r = _continue(ref_pad, query_pad, loc_r, loc_q, st_r, sub, xdrop,
-                     ref_len, query_len, left=False, **kw)
-    st_l = _continue(ref_pad, query_pad, loc_r, loc_q, st_l, sub, xdrop,
-                     ref_len, query_len, left=True, **kw)
+    kw = dict(pad=pad, tile=W, W=W_CONT, with_counts=with_counts)
+    st_r = run_survivors(ref_pad, query_pad, loc_r, loc_q, st_r, sub, xdrop,
+                         ref_len, query_len, left=False, **kw)
+    st_l = run_survivors(ref_pad, query_pad, loc_r, loc_q, st_l, sub, xdrop,
+                         ref_len, query_len, left=True, **kw)
     return finalize(valid, loc_r, loc_q, st_r["maxv"], st_r["maxp"],
                     st_l["maxv"], st_l["maxp"],
                     st_r["counts"] + st_l["counts"], hspthresh)

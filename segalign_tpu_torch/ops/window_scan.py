@@ -16,7 +16,8 @@ from .extend3 import STATE_KEYS, check_tensors
 from .extend3 import scan_raw_window as window_scan_plain
 
 
-def _check(r, q, loc_r, loc_q, st, sub, W):
+def check_window(r, q, loc_r, loc_q, st, sub, W):
+    """The argument checks of both carried-state window scans (K4, K5)."""
     B = r.shape[0]
     args = [("r", r, torch.uint8, (B, W)), ("q", q, torch.uint8, (B, W)),
             ("loc_r", loc_r, torch.int32, (B,)),
@@ -28,19 +29,13 @@ def _check(r, q, loc_r, loc_q, st, sub, W):
     check_tensors(args, r.device, W)
 
 
-def window_scan(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
-                ref_len: int, query_len: int, *, W: int, left: bool,
-                with_counts: bool):
-    """CPU tensors take window_scan_plain; CUDA tensors launch
-    csrc/window_scan.cu. Returns the new state dict."""
-    _check(r, q, loc_r, loc_q, st, sub, W)
-    if r.device.type == "cpu":
-        return window_scan_plain(r, q, loc_r, loc_q, st, sub, xdrop, tile,
-                                 ref_len, query_len, W=W, left=left,
-                                 with_counts=with_counts)
+def launch_window(name, r, q, loc_r, loc_q, st, sub, xdrop, tile, ref_len,
+                  query_len, *, W, left, with_counts):
+    """Launch one carried-state window scan (`name` is its launcher) and
+    return the new state dict."""
     out = {k: torch.empty_like(st[k]) for k in STATE_KEYS}
     _build.launch(
-        "sa_window_scan", r.data_ptr(), q.data_ptr(), loc_r.data_ptr(),
+        name, r.data_ptr(), q.data_ptr(), loc_r.data_ptr(),
         loc_q.data_ptr(), st["cum"].data_ptr(), st["maxv"].data_ptr(),
         st["maxp"].data_ptr(), st["done"].data_ptr(),
         st["counts"].data_ptr(), st["cdel"].data_ptr(), sub.data_ptr(),
@@ -48,6 +43,20 @@ def window_scan(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
         int(left), int(with_counts),
         *[out[k].data_ptr() for k in STATE_KEYS],
         torch.cuda.current_stream(r.device).cuda_stream)
+    return out
+
+
+def window_scan(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
+                ref_len: int, query_len: int, *, W: int, left: bool,
+                with_counts: bool):
+    """CPU tensors take window_scan_plain; CUDA tensors launch
+    csrc/window_scan.cu. Returns the new state dict."""
+    check_window(r, q, loc_r, loc_q, st, sub, W)
+    args = (r, q, loc_r, loc_q, st, sub, xdrop, tile, ref_len, query_len)
+    kw = dict(W=W, left=left, with_counts=with_counts)
+    if r.device.type == "cpu":
+        return window_scan_plain(*args, **kw)
+    out = launch_window("sa_window_scan", *args, **kw)
     window_scan.launches += 1
     return out
 

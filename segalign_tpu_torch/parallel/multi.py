@@ -9,7 +9,7 @@ devices, with requeue on failure, is not ported yet (ROADMAP, Queue 1,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -21,6 +21,8 @@ class ChunkWork:
     chunk_start: int
     chunk_end: int
     rev: bool
+    # the repeat masker's window of reference positions (lo, hi)
+    window: Optional[Tuple[int, int]] = None
 
 
 class MultiDeviceAligner:

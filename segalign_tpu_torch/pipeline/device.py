@@ -1,12 +1,26 @@
 """Per-chunk pipeline on one device: seeds -> hits -> extension ->
 candidates -> HSPs.
 
-Counterpart of the native path of segalign_tpu/pipeline/device.py
-DeviceAligner. The host seeds each chunk with the shared native seeder
-(segalign_tpu/native/seeder.cpp); the device extends the hits in programs
-of at most HBUF rows (ops/extend_fused.py) and compacts and dedups the
-candidates (_pack_compact); the host finalizes entropy and dedups each
-logical hit batch with the shared numpy/C++ code (segalign_tpu/ops).
+Counterpart of segalign_tpu/pipeline/device.py DeviceAligner and its two
+seeding routes, chosen when the aligner is made:
+
+  - native (the default): the host seeds each chunk with the shared
+    native seeder (segalign_tpu/native/seeder.cpp); the device extends the
+    hits in programs of at most HBUF rows (ops/extend_fused.py) and
+    compacts and dedups the candidates (_pack_compact); the host recomputes
+    the entropy counts of the candidates that need them.
+  - device seeding (device_seeding=True): the device seeds each chunk
+    (ops/seeding.py); a host chain of lower bounds over the seeds' hit
+    counts cuts the logical hit batches (_plan_limits); each range of at
+    most HBUF hits is expanded (ops/hits.py), extended by the host-stepped
+    windowed engine (ops/extend3.py extend_hits_windowed, whose window step
+    is K5, ops/window_scan_wide.py) with the entropy counts on, and its
+    candidates compacted and fetched.
+
+On both, the host finalizes entropy and dedups each logical hit batch with
+the shared numpy/C++ code (segalign_tpu/ops). In rm_mode (the repeat
+masker) hits are restricted to a window of the reference, minus-strand
+HSPs are remapped onto the forward strand, and the dedup is dedup_rm.
 
 What the JAX aligner carries for the TPU and its remote compiles has no
 counterpart, since none of it changes output: power-of-two program and
@@ -21,19 +35,22 @@ from __future__ import annotations
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from segalign_tpu.index.seed_table import build_seed_table
-from segalign_tpu.ops.dedup import dedup_pairwise
+from segalign_tpu.ops.dedup import dedup_pairwise, dedup_rm
 from segalign_tpu.ops.finalize import finalize_candidates
 
 from .. import _build
+from ..ops.extend3 import extend_hits_windowed
 from ..ops.extend_fused import Q_TILE, R_TILE, extend_fields_program
 from ..ops.gather import tile_spans_ok
+from ..ops.hits import compact_mask, expand_hits
 from ..ops.padding import pad_sequence
+from ..ops.seeding import chunk_seeds
 
 DEFAULT_MAX_HITS = 4194304 * 16  # reference: MAX_HITS_PER_GB * gpu_mem_gb
 # extension window widths: the first window of every hit, and the windows
@@ -99,13 +116,72 @@ def _pack_compact(fins, seg_ends: torch.Tensor) -> torch.Tensor:
                       cat("counts")[sel]], dim=1)
 
 
+def _plan_limits(cum: torch.Tensor, num_hits: int, max_hits: int,
+                 num_iter: int):
+    """The host chain of lower bounds of the reference's iteration
+    batching (seed_filter.cu:718-741), one device sync a step: returns the
+    seed positions and hit offsets of the first num_iter - 1 limits."""
+    poss, vals = [], []
+    limit = min(num_hits, max_hits)
+    for _ in range(num_iter - 1):
+        # the last seed whose cumulative hit count is below the limit, and
+        # that count (0 before the first seed)
+        pos = torch.searchsorted(
+            cum, torch.tensor([limit], dtype=cum.dtype,
+                              device=cum.device)) - 1
+        val = torch.where(pos >= 0, cum[pos.clamp(min=0)].long(), 0)
+        pos, val = torch.cat([pos, val]).tolist()
+        poss.append(pos)
+        vals.append(val)
+        limit = min(val + max_hits, num_hits)
+    return poss, vals
+
+
+def _batch_ends(cum: torch.Tensor, num_hits: int, max_hits: int) -> list:
+    """End offsets into the hit stream of the logical hit batches: the
+    chain of _plan_limits and a last batch that ends at num_hits, dropped
+    when its seed position repeats the chain's last one."""
+    num_iter = 2 if num_hits < max_hits else num_hits // max_hits + 2
+    poss, vals = _plan_limits(cum, num_hits, max_hits, num_iter)
+    limit_pos = poss + [cum.shape[0] - 1]
+    hit_bound = vals + [num_hits]
+    if limit_pos[-1] == limit_pos[-2]:
+        hit_bound.pop()
+    return hit_bound
+
+
+def _process_hit_range(ref_pad, query_pad, pos_table, cum, starts, qpos,
+                       sub, g0: int, g1: int, ref_len: int, query_len: int,
+                       xdrop: int, hspthresh: int, seed_size: int, window,
+                       *, pad: int):
+    """Expand hits [g0, g1), keep those whose reference position lies in
+    the RM window (when one is given), extend them, and fetch the
+    candidates: an (n, 8) int64 host array of rs, qs, length, total and
+    counts[4], in hit order."""
+    ref_loc, query_loc, valid = expand_hits(
+        cum, starts, qpos, pos_table, g0, g1, seed_size, HBUF=g1 - g0)
+    if window is not None:
+        valid &= (ref_loc >= window[0]) & (ref_loc <= window[1])
+    res = extend_hits_windowed(ref_pad, query_pad, ref_loc, query_loc, valid,
+                               sub, xdrop, hspthresh, ref_len, query_len,
+                               pad=pad, W=pad)
+    n, rs, qs, ln, total, counts = compact_mask(
+        res["candidate"], res["rs"], res["qs"], res["length"], res["total"],
+        res["counts"])
+    n = int(n)
+    return torch.cat([rs[:n, None], qs[:n, None], ln[:n, None],
+                      total[:n, None], counts[:n]],
+                     dim=1).cpu().numpy().astype(np.int64)
+
+
 class DeviceAligner:
     """Device-resident state for one (reference block, query block) pair,
     and the per-chunk seed-filter-extend calls on it."""
 
     def __init__(self, *, shape_pos, seed_size, transition, step, sub_mat,
                  xdrop, hspthresh, noentropy, chunk_size, device,
-                 max_hits: int = DEFAULT_MAX_HITS, HBUF: int = 1 << 17):
+                 max_hits: int = DEFAULT_MAX_HITS, HBUF: int = 1 << 17,
+                 rm_mode: bool = False, device_seeding: bool = False):
         self.shape_pos = tuple(shape_pos)
         self.seed_size = seed_size
         self.kmer_size = len(shape_pos)
@@ -116,22 +192,32 @@ class DeviceAligner:
         self.noentropy = noentropy
         self.chunk_size = chunk_size
         self.max_hits = max_hits
-        # rows per extension program: bounds the device memory of the
-        # first window's two (HBUF, 2W) byte windows
+        # rows per extension program (native route) or per expanded hit
+        # range (device route): bounds the device memory of the first
+        # window's byte windows
         self.HBUF = HBUF
+        self.rm_mode = rm_mode
+        self.device_seeding = device_seeding
         self.device = torch.device(device)
         self.sub = torch.as_tensor(
             np.asarray(sub_mat, np.int32).reshape(-1)).to(self.device)
+        # the shared host code (dedup, encoding) loads the port's copy of
+        # the native library on both routes; the native route seeds with it
         _build.native_lib_path()
-        from segalign_tpu.native import ChunkSeeder, get_lib
-        if get_lib() is None:
-            raise RuntimeError("the native host library failed to load")
-        self._seeder = ChunkSeeder(chunk_size, self.kmer_size, transition)
+        self._seeder = None
+        if not device_seeding:
+            from segalign_tpu.native import ChunkSeeder, get_lib
+            if get_lib() is None:
+                raise RuntimeError("the native host library failed to load")
+            self._seeder = ChunkSeeder(chunk_size, self.kmer_size,
+                                       transition)
         self.ref_len = 0
         self.q_len = 0
 
-    def _upload(self, codes: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(pad_sequence(codes, PAD)).to(self.device)
+    def _upload(self, codes: np.ndarray, right_pad: int = 0
+                ) -> torch.Tensor:
+        return torch.from_numpy(pad_sequence(codes, PAD, right_pad)).to(
+            self.device)
 
     def set_ref(self, ref_codes: np.ndarray, tables=None):
         """tables: an optional precomputed (index_table, pos_table)."""
@@ -143,11 +229,21 @@ class DeviceAligner:
                                       self.seed_size, self.kmer_size)
         self._host_tables = tuple(np.ascontiguousarray(t, np.int32)
                                   for t in tables)
+        if self.device_seeding:
+            index_table, pos_table = self._host_tables
+            self.index_table = torch.from_numpy(index_table).to(self.device)
+            # expand_hits indexes the position table even with no hits
+            self.pos_table = torch.from_numpy(
+                pos_table if len(pos_table) else np.zeros(1, np.int32)).to(
+                    self.device)
 
     def set_query(self, fw_codes: np.ndarray, rc_codes: np.ndarray):
         self.q_len = len(fw_codes)
-        self.q_fw = self._upload(fw_codes)
-        self.q_rc = self._upload(rc_codes)
+        # chunk_seeds reads chunk_size + seed_size bytes from a chunk start
+        right = (self.chunk_size + self.seed_size + 1 if self.device_seeding
+                 else 0)
+        self.q_fw = self._upload(fw_codes, right)
+        self.q_rc = self._upload(rc_codes, right)
         self._q_fw_host = np.ascontiguousarray(fw_codes, np.uint8)
         self._q_rc_host = np.ascontiguousarray(rc_codes, np.uint8)
 
@@ -155,11 +251,20 @@ class DeviceAligner:
                    ) -> List[ChunkResult]:
         """Process chunks in order; results in work order.
 
-        A finisher thread fetches each chunk's candidates and runs the host
-        finalize and dedup while this thread seeds and extends the next
-        chunks; at most `depth` finished-but-unread chunks wait.
-        on_result(index, ChunkResult), when given, fires as each chunk
-        finishes, in work order."""
+        On the native route a finisher thread fetches each chunk's
+        candidates and runs the host finalize and dedup while this thread
+        seeds and extends the next chunks; at most `depth` finished-but-
+        unread chunks wait. The device route runs chunk by chunk, as in the
+        JAX package. on_result(index, ChunkResult), when given, fires as
+        each chunk finishes, in work order."""
+        if self.device_seeding:
+            results = []
+            for i, w in enumerate(work):
+                results.append(self.seed_and_filter(
+                    w.chunk_start, w.chunk_end, w.rev, window=w.window))
+                if on_result is not None:
+                    on_result(i, results[-1])
+            return results
         results = []
         futs: deque = deque()
 
@@ -172,7 +277,8 @@ class DeviceAligner:
 
         with ThreadPoolExecutor(1) as ex:
             for i, w in enumerate(work):
-                pend = self.dispatch_chunk(w.chunk_start, w.chunk_end, w.rev)
+                pend = self.dispatch_chunk(w.chunk_start, w.chunk_end,
+                                           w.rev, window=w.window)
                 futs.append((i, ex.submit(self._finish_on_device, pend)))
                 while len(futs) > depth:
                     drain()
@@ -187,15 +293,22 @@ class DeviceAligner:
                 return self.finish_chunk(p)
         return self.finish_chunk(p)
 
-    def seed_and_filter(self, chunk_start: int, chunk_end: int,
-                        rev: bool) -> ChunkResult:
+    def seed_and_filter(self, chunk_start: int, chunk_end: int, rev: bool,
+                        window: Optional[Tuple[int, int]] = None
+                        ) -> ChunkResult:
+        """The HSPs of one chunk-strand. window: the RM window (lo, hi) of
+        reference positions a hit must lie in, or None."""
+        if self.device_seeding:
+            return self._seed_and_filter_device(chunk_start, chunk_end, rev,
+                                                window)
         return self.finish_chunk(
-            self.dispatch_chunk(chunk_start, chunk_end, rev))
+            self.dispatch_chunk(chunk_start, chunk_end, rev, window))
 
-    def dispatch_chunk(self, chunk_start: int, chunk_end: int,
-                       rev: bool) -> PendingChunk:
+    def dispatch_chunk(self, chunk_start: int, chunk_end: int, rev: bool,
+                       window: Optional[Tuple[int, int]] = None
+                       ) -> PendingChunk:
         """Host-native seeding and hit expansion, then the extension and
-        candidate compaction on the device."""
+        candidate compaction on the device (native route)."""
         q_host = self._q_rc_host if rev else self._q_fw_host
         index_table, pos_table = self._host_tables
         ref_loc, query_loc, _, hit_bound, num_seeds, num_hits = (
@@ -203,9 +316,19 @@ class DeviceAligner:
                 q_host, chunk_start, chunk_end - chunk_start, index_table,
                 pos_table, self.shape_pos, self.seed_size, self.max_hits))
         seg_ends = np.asarray(hit_bound, np.int64)
+        empty = PendingChunk(chunk_start, chunk_end, rev, num_seeds,
+                             num_hits, None, seg_ends)
         if num_seeds == 0 or num_hits == 0:
-            return PendingChunk(chunk_start, chunk_end, rev, num_seeds,
-                                num_hits, None, seg_ends)
+            return empty
+        if window is not None:
+            # keep the hits in the window; the batch ends count kept hits
+            keep = (ref_loc >= window[0]) & (ref_loc <= window[1])
+            kept_cum = np.cumsum(keep, dtype=np.int64)
+            seg_ends = np.where(seg_ends > 0,
+                                kept_cum[np.maximum(seg_ends - 1, 0)], 0)
+            ref_loc, query_loc = ref_loc[keep], query_loc[keep]
+            if len(ref_loc) == 0:
+                return empty
         q_pad = self.q_rc if rev else self.q_fw
         fins = self._dispatch_rows(ref_loc, query_loc, q_pad)
         out = _pack_compact(fins, torch.from_numpy(seg_ends).to(self.device))
@@ -257,32 +380,79 @@ class DeviceAligner:
         for s in np.unique(seg):
             r = allrows[seg == s]
             out_arr = self._finalize_batch(r[:, 1], r[:, 2], r[:, 3],
-                                           r[:, 4], p.rev)
+                                           r[:, 4], p.rev, counts=None)
             if out_arr is not None:
                 all_out.append(out_arr)
         return (np.concatenate(all_out, axis=0) if all_out
                 else np.zeros((0, 4), np.int64))
 
-    def _finalize_batch(self, rs, qs, ln, total, rev: bool):
+    def _finalize_batch(self, rs, qs, ln, total, rev: bool,
+                        counts: Optional[np.ndarray]):
         """Entropy finalize and dedup of one logical hit batch; an (n, 4)
         int64 array or None.
 
-        The device extension skips the per-base match counts; they are a
-        function of the final extent (oracle/scan_spec.py), so the host
-        recomputes them for the candidates in the entropy band only (rows
-        outside it have entropy 1 and never read counts)."""
-        from segalign_tpu.native import entropy_counts_host
-        counts = np.zeros((len(rs), 4), np.int64)
-        if not self.noentropy:
-            band = (total >= self.hspthresh) & (total <= 3 * self.hspthresh)
-            if band.any():
-                q = self._q_rc_host if rev else self._q_fw_host
-                counts[band] = entropy_counts_host(
-                    self._ref_host, q, rs[band], qs[band], ln[band])
+        counts: the device's match counts (device route), or None (native
+        route): that extension skips the counts; they are a function of the
+        final extent (oracle/scan_spec.py), so the host recomputes them for
+        the candidates in the entropy band only (rows outside it have
+        entropy 1 and never read counts)."""
+        if counts is None:
+            from segalign_tpu.native import entropy_counts_host
+            counts = np.zeros((len(rs), 4), np.int64)
+            if not self.noentropy:
+                band = ((total >= self.hspthresh)
+                        & (total <= 3 * self.hspthresh))
+                if band.any():
+                    q = self._q_rc_host if rev else self._q_fw_host
+                    counts[band] = entropy_counts_host(
+                        self._ref_host, q, rs[band], qs[band], ln[band])
         accepted, scores = finalize_candidates(
             rs, qs, ln, total, counts, self.hspthresh, self.noentropy)
         if not accepted.any():
             return None
-        rs, qs, ln, sc = dedup_pairwise(rs[accepted], qs[accepted],
-                                        ln[accepted], scores[accepted])
+        rs, qs, ln, sc = (rs[accepted], qs[accepted], ln[accepted],
+                          scores[accepted])
+        if self.rm_mode and rev:
+            # minus-strand remap onto forward-strand coordinates (the
+            # reference repeat masker's seed_filter.cu:705-709)
+            qs = self.ref_len - 1 - (qs + ln)
+        dedup = dedup_rm if self.rm_mode else dedup_pairwise
+        rs, qs, ln, sc = dedup(rs, qs, ln, sc)
         return np.stack([rs, qs, ln, sc], axis=1)
+
+    def _seed_and_filter_device(self, chunk_start: int, chunk_end: int,
+                                rev: bool,
+                                window: Optional[Tuple[int, int]]
+                                ) -> ChunkResult:
+        """Device seeding, batch planning, hit expansion and windowed
+        extension of one chunk-strand; host finalize and dedup per logical
+        batch."""
+        empty = np.zeros((0, 4), np.int64)
+        q = self.q_rc if rev else self.q_fw
+        _, qpos, _, starts, cum, stats = chunk_seeds(
+            q, self.index_table, chunk_start, chunk_end - chunk_start,
+            CHUNK=self.chunk_size, seed_size=self.seed_size,
+            shape_pos=self.shape_pos, transition=self.transition, pad=PAD)
+        num_seeds, num_hits = stats.tolist()
+        if num_seeds == 0:
+            return ChunkResult(empty, 0, 0)
+        if num_hits == 0:
+            return ChunkResult(empty, 0, num_seeds)
+        all_out: List[np.ndarray] = []
+        h0 = 0
+        for h1 in _batch_ends(cum, num_hits, self.max_hits):
+            g0s = range(h0, h1, self.HBUF)
+            h0 = max(h0, h1)
+            if not g0s:
+                continue
+            rows = np.concatenate([_process_hit_range(
+                self.ref_pad, q, self.pos_table, cum, starts, qpos, self.sub,
+                g0, min(g0 + self.HBUF, h1), self.ref_len, self.q_len,
+                self.xdrop, self.hspthresh, self.seed_size, window, pad=PAD)
+                for g0 in g0s])
+            out = self._finalize_batch(rows[:, 0], rows[:, 1], rows[:, 2],
+                                       rows[:, 3], rev, counts=rows[:, 4:8])
+            if out is not None:
+                all_out.append(out)
+        hsps = np.concatenate(all_out) if all_out else empty
+        return ChunkResult(hsps, num_hits, num_seeds)

@@ -41,12 +41,14 @@ class PipelineStats:
 
 def run_pairwise(cfg: Config, out_dir: str, *, device,
                  emit: Optional[Callable[[str], None]] = None,
-                 resume: bool = False) -> PipelineStats:
+                 resume: bool = False,
+                 device_seeding: bool = False) -> PipelineStats:
     """Run the ungapped stage end to end on `device`.
 
     Writes query_block*.name / ref_block*.name and tmp*.segments files into
     out_dir, and passes each lastz command line to `emit` (default: print
-    to stdout, the reference's data channel)."""
+    to stdout, the reference's data channel). device_seeding selects the
+    aligner's device-seeding route."""
     if cfg.sharded_table:
         raise NotImplementedError(
             "--sharded_table is not ported yet (ROADMAP Queue 1, "
@@ -101,7 +103,8 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
         shape_pos=cfg.seed.shape_pos, seed_size=cfg.seed.size,
         transition=cfg.seed.transition, step=cfg.step, sub_mat=cfg.sub_mat,
         xdrop=cfg.xdrop, hspthresh=cfg.hspthresh, noentropy=cfg.noentropy,
-        chunk_size=cfg.wga_chunk_size, **extra)
+        chunk_size=cfg.wga_chunk_size, device_seeding=device_seeding,
+        **extra)
     log(f"Using {aligner.num_devices} device(s): {device}")
 
     do_plus = cfg.strand in ("plus", "both")

@@ -19,6 +19,8 @@ from segalign_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
                                            gather_rows_tile)
 from segalign_tpu_torch.ops.window_scan import (window_scan,
                                                 window_scan_plain)
+from segalign_tpu_torch.ops.window_scan_wide import (window_scan_wide,
+                                                     window_scan_wide_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -129,6 +131,98 @@ def test_window_scan(dev, left, with_counts):
                       910, tile, n, n, W=W, left=left,
                       with_counts=with_counts)
     _same(want, got)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("tile", [0, 2048])
+@pytest.mark.parametrize("left", [False, True])
+def test_window_scan_wide(dev, left, tile, with_counts):
+    """K5 on windows in extension order, walls included: at tile 0 from a
+    fresh state, and at tile > 0 from carried states, half alive."""
+    from segalign_tpu_torch.ops.extend3 import init_state
+    rng = np.random.default_rng(20 + 4 * left + 2 * bool(tile) + with_counts)
+    n, pad, W, B = 30_000, 4096, 2048, 3000
+    seq = torch.from_numpy(_seq(rng, n, pad))
+    loc_r = rng.integers(0, n, B).astype(np.int32)
+    loc_q = loc_r.copy()
+    loc_q[: B // 2] = rng.integers(0, n, B // 2)
+    loc_r[B // 2:B // 2 + 800] = rng.integers(1000, 4000, 800)
+    loc_q[B // 2:B // 2 + 800] = loc_r[B // 2:B // 2 + 800] + n // 2 - 1000
+    loc_r[:4], loc_q[:4] = [0, n - 1, 3000, 100], [n - 1, 0, 2990, 7100]
+    lr, lq = torch.from_numpy(loc_r), torch.from_numpy(loc_q)
+    off = -tile - W if left else tile
+    r = gather_rows_plain(seq, pad + lr + off, W)
+    q = gather_rows_plain(seq, pad + lq + off, W)
+    if left:
+        r, q = r.flip(1).contiguous(), q.flip(1).contiguous()
+    if tile == 0:
+        st = init_state(B, 0 if left else -1,
+                        torch.from_numpy(rng.random(B) > 0.1), "cpu")
+    else:
+        cum = rng.integers(-500, 5000, B).astype(np.int32)
+        st = dict(done=rng.random(B) < 0.5, cum=cum,
+                  maxv=cum + rng.integers(0, 950, B).astype(np.int32),
+                  maxp=rng.integers(0, tile + 2, B).astype(np.int32),
+                  counts=rng.integers(0, 50, (B, 4)).astype(np.int32),
+                  cdel=rng.integers(0, 50, (B, 4)).astype(np.int32))
+        st = {k: torch.from_numpy(v) for k, v in st.items()}
+    sub = torch.from_numpy(SUB)
+    want = window_scan_wide_plain(r, q, lr, lq, st, sub, 910, tile, n, n,
+                                  W=W, left=left, with_counts=with_counts)
+    before = window_scan_wide.launches
+    got = window_scan_wide(r.to(dev), q.to(dev), lr.to(dev), lq.to(dev),
+                           {k: v.to(dev) for k, v in st.items()},
+                           sub.to(dev), 910, tile, n, n, W=W, left=left,
+                           with_counts=with_counts)
+    assert window_scan_wide.launches == before + 1
+    _same(want, got)
+
+
+def _rm_aligner_pair(dev, **extra):
+    from segalign_tpu.config import make_seed_config
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    sc = make_seed_config("12of19")
+    kw = dict(shape_pos=sc.shape_pos, seed_size=sc.size, transition=True,
+              step=1, sub_mat=build_substitution_matrix(910), xdrop=910,
+              hspthresh=3000, noentropy=False, chunk_size=20_000,
+              HBUF=4096, **extra)
+    return sc, [DeviceAligner(device=d, **kw) for d in ("cpu", dev)]
+
+
+@pytest.mark.parametrize("rm_mode", [False, True])
+def test_device_seeding_aligner_cuda_matches_cpu(dev, rm_mode):
+    """The device-seeding route on the card against the same route on the
+    CPU; in rm_mode a self-alignment with a window."""
+    from segalign_tpu.io.blocks import chunk_interval
+    rng = np.random.default_rng(6)
+    ref = rng.integers(0, 4, 60_000).astype(np.uint8)
+    if rm_mode:
+        ref[30_000:36_000] = ref[2000:8000]
+        # soft-masked runs end the self-hits of the main diagonal
+        for p in range(1000, 60_000, 2500):
+            ref[p:p + 50] = 4
+        query = ref
+    else:
+        query = rng.integers(0, 4, 60_000).astype(np.uint8)
+        mut = rng.random(9000) < 0.08
+        query[20_000:29_000] = np.where(mut, (ref[1000:10_000] + 1) % 4,
+                                        ref[1000:10_000])
+    qrc = np.array([3, 2, 1, 0, 4, 5, 6, 7], np.uint8)[query[::-1]]
+    sc, als = _rm_aligner_pair(dev, rm_mode=rm_mode, device_seeding=True)
+    for al in als:
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    window = (1000, 50_000) if rm_mode else None
+    before = window_scan_wide.launches
+    n = 0
+    for (cs, ce) in chunk_interval(0, len(query) - sc.size, 20_000):
+        for rev in (False, True):
+            a, b = (al.seed_and_filter(cs, ce, rev, window=window)
+                    for al in als)
+            assert (a.num_hits, a.num_seeds) == (b.num_hits, b.num_seeds)
+            np.testing.assert_array_equal(a.hsps, b.hsps)
+            n += len(a.hsps)
+    assert n > 0 and window_scan_wide.launches > before
 
 
 def test_aligner_cuda_matches_cpu(dev):
