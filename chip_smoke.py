@@ -1,5 +1,6 @@
 """Drive the port's paths once on one NVIDIA GPU and check them: the
-pairwise ungapped main path on both seeding routes, and the repeat masker.
+pairwise ungapped main path on both seeding routes, the repeat masker, and
+the measurement scripts with their kernels (S1-S4).
 
     python3 chip_smoke.py
 
@@ -15,7 +16,10 @@ last line, and without CUDA the script fails at once:
      (CUDA events, after a warmup, measured plain, kernel, kernel, plain);
      K5 (window_scan_wide) at the device route's first window (2^17 rows,
      tile 0, fresh state) and at a continuation (16384 rows, tile 2048,
-     half alive);
+     half alive); S1 (gather_dma_only, gather_extract_only, gather_dbuf)
+     and S2 (gather_two_sided) at exp_gather_variants' shapes (2^17
+     windows of 512 bytes), S3/S4 (scale2) on (256, 512) and (8, 128)
+     float32;
   2. the slice at full size: DeviceAligner.map_chunks over both strands of
      every 250 kb chunk of bench.py's repeat-1x pair (4 Mbp x 4 Mbp,
      rng 2024) with bench.make_aligner's settings, which must give the
@@ -33,7 +37,11 @@ last line, and without CUDA the script fails at once:
   3c. the repeat masker at real size: run_repeat_masker with RMConfig's
      defaults on bench.py's repeat-1x 4 Mbp reference written as a FASTA,
      on both routes, whose interval files must be byte-identical;
-  4. the kernels as one JSON line, then the result as the last line.
+  4. the measurement scripts, in process with small repetition counts:
+     exp_gather_variants.main, probe_env.main and probe_extension.main
+     over every probe; any exception fails the run, and each of S1-S4's
+     launchers must be launched there;
+  5. the kernels as one JSON line, then the result as the last line.
 
 Imports no jax. Besides the port it uses only the jax-free host modules of
 segalign_tpu that the port itself shares (config, io) and bench.py's input
@@ -166,8 +174,12 @@ def _time_pair(kernel, plain, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _err(a, b) -> int:
-    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+def _err(a, b):
+    if not a.numel():
+        return 0
+    if a.is_floating_point():
+        return float((a - b).abs().max().item())
+    return int((a.long() - b.long()).abs().max().item())
 
 
 def _state_err(a, b) -> int:
@@ -205,6 +217,10 @@ def main():
         first_scan_plain
     from segalign_tpu_torch.ops.gather import gather_rows, \
         gather_rows_plain, gather_rows_tile
+    from segalign_tpu_torch.ops import gather_variants as gv
+    from segalign_tpu_torch.ops.probe import scale2, scale2_plain
+    from segalign_tpu_torch.scripts import exp_gather_variants, probe_env, \
+        probe_extension
     from segalign_tpu_torch.ops.extend3 import init_state
     from segalign_tpu_torch.ops.window_scan import window_scan, \
         window_scan_plain
@@ -392,6 +408,30 @@ def main():
     del ref_w, q_w, first
     torch.cuda.empty_cache()
 
+    # S1 and S2 at exp_gather_variants' shapes, S3/S4 at the probes'
+    seq_r, seq_q, st, st2 = exp_gather_variants.make_inputs(dev)
+    Wv, Bv = exp_gather_variants.W, exp_gather_variants.B
+    for name in ("gather_dma_only", "gather_extract_only", "gather_dbuf"):
+        fn, plain = getattr(gv, name), getattr(gv, name + "_plain")
+        err = _err(fn(seq_r, st, Wv), plain(seq_r, st, Wv))
+        K.check(name, f"B={Bv} W={Wv}", err, *_time_pair(
+            lambda: fn(seq_r, st, Wv), lambda: plain(seq_r, st, Wv), 20))
+    err = max(_err(g, w) for g, w in zip(
+        gv.gather_two_sided(seq_r, seq_q, st2, Wv),
+        gv.gather_two_sided_plain(seq_r, seq_q, st2, Wv)))
+    K.check("gather_two_sided", f"B={Bv} x 2 sides W={Wv}", err,
+            *_time_pair(
+                lambda: gv.gather_two_sided(seq_r, seq_q, st2, Wv),
+                lambda: gv.gather_two_sided_plain(seq_r, seq_q, st2, Wv),
+                20))
+    for shape, label in (((256, 512), "S3"), ((8, 128), "S4")):
+        x = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+        K.check("scale2", f"{shape} float32 ({label})",
+                _err(scale2(x), scale2_plain(x)),
+                *_time_pair(lambda: scale2(x), lambda: scale2_plain(x), 50))
+    del seq_r, seq_q, st, st2
+
     # ---- phase 2: the slice at full size
     print("phase 2: DeviceAligner.map_chunks over the repeat-1x pair",
           flush=True)
@@ -570,25 +610,58 @@ def main():
     if got["native"] != got["device"]:
         fail("the repeat masker's interval files differ between routes")
 
-    # ---- phase 4: results
+    # ---- phase 4: the measurement scripts
+    print("phase 4: the measurement scripts, in process", flush=True)
+    script_kernels = dict(
+        gather_dma_only=gv.gather_dma_only,
+        gather_extract_only=gv.gather_extract_only,
+        gather_dbuf=gv.gather_dbuf, gather_two_sided=gv.gather_two_sided,
+        scale2=scale2)
+    for w in (*wrappers.values(), *script_kernels.values()):
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    exp_gather_variants.main(["3"])
+    probe_env.main([], iters=3)
+    probe_extension.main([], iters=3)
+    torch.cuda.synchronize()
+    for k, w in script_kernels.items():
+        launches[k] = w.launches
+    print(f"scripts: {time.time() - t0:.1f} s, launches "
+          f"{dict((k, launches[k]) for k in script_kernels)} [{card}]",
+          flush=True)
+    for k in script_kernels:
+        if launches[k] == 0:
+            fail(f"{k} was not launched by the measurement scripts")
+
+    # ---- phase 5: results
     rows = []
+    variants = "segalign_tpu_torch/csrc/gather_variants.cu"
     sources = dict(gather_rows="segalign_tpu_torch/csrc/gather.cu",
                    gather_rows_tile="segalign_tpu_torch/csrc/gather.cu",
                    first_scan="segalign_tpu_torch/csrc/first_scan.cu",
                    window_scan="segalign_tpu_torch/csrc/window_scan.cu",
                    window_scan_wide=(
-                       "segalign_tpu_torch/csrc/window_scan_wide.cu"))
+                       "segalign_tpu_torch/csrc/window_scan_wide.cu"),
+                   gather_dma_only=variants, gather_extract_only=variants,
+                   gather_dbuf=variants, gather_two_sided=variants,
+                   scale2="segalign_tpu_torch/csrc/probe.cu")
     replaces = dict(
         gather_rows="segalign_tpu/ops/extend_pallas.py:469",
         gather_rows_tile="segalign_tpu/ops/extend_pallas.py:553",
         first_scan="segalign_tpu/ops/extend_pallas.py:363",
         window_scan="segalign_tpu/ops/extend_tiled.py:261",
-        window_scan_wide="segalign_tpu/ops/extend_pallas.py:212")
+        window_scan_wide="segalign_tpu/ops/extend_pallas.py:212",
+        gather_dma_only="scripts/exp_gather_variants.py:109",
+        gather_extract_only="scripts/exp_gather_variants.py:109",
+        gather_dbuf="scripts/exp_gather_variants.py:109",
+        gather_two_sided="scripts/exp_gather_variants.py:169",
+        scale2="scripts/probe_env.py:163, scripts/probe_extension.py:159")
     # each kernel's launches on its path: phase 2 for K1-K4, phase 2b
-    # (the device-seeding route) for K5
+    # (the device-seeding route) for K5, phase 4 (the scripts) for S1-S4
     launches["window_scan_wide"] = launches_d["window_scan_wide"]
     for name in ("first_scan", "gather_rows", "gather_rows_tile",
-                 "window_scan", "window_scan_wide"):
+                 "window_scan", "window_scan_wide", *script_kernels):
         r = K.rows[name]
         rows.append(dict(name=name, route="cuda", source=sources[name],
                          replaces=replaces[name], launches=launches[name],

@@ -48,6 +48,11 @@ _SIGNATURES = {
     "sa_first_scan": [_P] * 6 + [_I] * 6 + [_P] * 13,
     "sa_window_scan": [_P] * 11 + [_I] * 8 + [_P] * 7,
     "sa_window_scan_wide": [_P] * 11 + [_I] * 8 + [_P] * 7,
+    "sa_gather_dma_only": [_P, _P, _I, _I, _P, _P],
+    "sa_gather_extract_only": [_P, _P, _I, _I, _P, _P],
+    "sa_gather_dbuf": [_P, _P, _I, _I, _P, _P],
+    "sa_gather_two_sided": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "sa_scale2": [_P, ctypes.c_int64, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,7 @@ at run time). The file imports no jax, so on a machine without it run:
     SEGALIGN_TEST_TPU=1 SEGALIGN_TEST_NO_DEFAULT_DEVICE=1 \
         python -m pytest -m cuda tests/test_torch_cuda.py
 
-Integers throughout: every comparison is exact."""
+Every comparison is exact: the values are integers, or floats times 2."""
 
 import numpy as np
 import pytest
@@ -256,3 +256,67 @@ def test_aligner_cuda_matches_cpu(dev):
             np.testing.assert_array_equal(a.hsps, b.hsps)
             n += len(a.hsps)
     assert n > 0 and fs_mod.first_scan.launches > before
+
+
+def _variant_inputs(rng, W, n, order):
+    """A sequence of n + AW codes and 40_003 starts in [0, n] (not a
+    multiple of the 32 rows of a bank, and enough row blocks that every
+    block loops), with both ends and 1024 boundaries among them."""
+    from segalign_tpu_torch.ops.gather_variants import awin_for
+    seq = rng.integers(0, 8, n + awin_for(W)).astype(np.uint8)
+    starts = rng.integers(0, n + 1, 40_003).astype(np.int32)
+    starts[:6] = [0, n, 1024, 1023, 1025, n - 1]
+    if order == "sorted":
+        starts.sort()
+    return seq, starts
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("W", [512, 2048])
+@pytest.mark.parametrize("mode", ["dma_only", "extract_only", "dbuf"])
+def test_gather_variants_s1(dev, mode, W, order):
+    from segalign_tpu_torch.ops import gather_variants as gv
+    fn = getattr(gv, f"gather_{mode}")
+    plain = getattr(gv, f"gather_{mode}_plain")
+    rng = np.random.default_rng(
+        [W, len(mode), int(order == "sorted")])
+    seq, starts = (torch.from_numpy(a)
+                   for a in _variant_inputs(rng, W, 700_000, order))
+    before = fn.launches
+    got = fn(seq.to(dev), starts.to(dev), W)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got.cpu(), plain(seq, starts, W))
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+def test_gather_two_sided_s2(dev, order):
+    """S2 from sequences of different lengths."""
+    from segalign_tpu_torch.ops.gather_variants import (
+        gather_two_sided, gather_two_sided_plain)
+    rng = np.random.default_rng(7 + (order == "sorted"))
+    W = 512
+    seq_r, st_r = _variant_inputs(rng, W, 300_000, order)
+    seq_q, st_q = _variant_inputs(rng, W, 1_000_003, order)
+    seq_r, seq_q = torch.from_numpy(seq_r), torch.from_numpy(seq_q)
+    starts2 = torch.from_numpy(np.concatenate([st_r, st_q]))
+    want = gather_two_sided_plain(seq_r, seq_q, starts2, W)
+    before = gather_two_sided.launches
+    got = gather_two_sided(seq_r.to(dev), seq_q.to(dev), starts2.to(dev), W)
+    torch.cuda.synchronize()
+    assert gather_two_sided.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("shape", [(256, 512), (8, 128), (1001,)])
+def test_scale2(dev, shape):
+    from segalign_tpu_torch.ops.probe import scale2, scale2_plain
+    rng = np.random.default_rng(len(shape))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x.view(-1)[:3] = torch.tensor([0.0, -0.0, 1e-40])
+    before = scale2.launches
+    got = scale2(x.to(dev))
+    torch.cuda.synchronize()
+    assert scale2.launches == before + 1
+    assert torch.equal(got.cpu(), scale2_plain(x))
