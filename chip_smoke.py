@@ -9,11 +9,17 @@ last line, and without CUDA the script fails at once:
 
   0. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, nvcc, and the build times of the CUDA kernels and of
-     the shared native host library (both built from this checkout);
+     the native host library (both built from this checkout);
   1. every kernel of the paths against its plain PyTorch version on the
      card, at the shapes the paths give it, with exact equality (the
-     values are integers), and each one's time beside the plain version's
-     (CUDA events, after a warmup, measured plain, kernel, kernel, plain);
+     values are integers), and each one's time (kernel_ms) beside the
+     plain version's (plain_ms; CUDA events, after a warmup, measured
+     plain, kernel, kernel, plain), its bound (bound_ms: the bytes this
+     run's inputs make it read and write over the card's memory rate, or
+     its operations over the card's rate if that is more) and, where one
+     PyTorch call computes the same function, that call's time
+     (library_ms: an advanced index for the gathers, x * 2 for scale2;
+     the port never calls it);
      K5 (window_scan_wide) at the device route's first window (2^17 rows,
      tile 0, fresh state) and at a continuation (16384 rows, tile 2048,
      half alive); S1 (gather_dma_only, gather_extract_only, gather_dbuf)
@@ -21,10 +27,10 @@ last line, and without CUDA the script fails at once:
      windows of 512 bytes), S3/S4 (scale2) on (256, 512) and (8, 128)
      float32;
   2. the slice at full size: DeviceAligner.map_chunks over both strands of
-     every 250 kb chunk of bench.py's repeat-1x pair (4 Mbp x 4 Mbp,
-     rng 2024) with bench.make_aligner's settings, which must give the
+     every 250 kb chunk of bench_inputs' repeat-1x pair (4 Mbp x 4 Mbp,
+     rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
-     run must be above 0;
+     run is printed and must be above 0;
   2b. the same slice on the device-seeding route
      (DeviceAligner(device_seeding=True)): the same HSP arrays per
      chunk-strand, with window_scan_wide launched;
@@ -35,17 +41,17 @@ last line, and without CUDA the script fails at once:
      masker) on a FASTA made from a fixed seed, on both seeding routes:
      each output must hash to what the JAX RM CLI writes for it;
   3c. the repeat masker at real size: run_repeat_masker with RMConfig's
-     defaults on bench.py's repeat-1x 4 Mbp reference written as a FASTA,
-     on both routes, whose interval files must be byte-identical;
+     defaults on the pair's 4 Mbp reference written as a FASTA, on both
+     routes, whose interval files must be byte-identical (each route's
+     launch counts are printed);
   4. the measurement scripts, in process with small repetition counts:
      exp_gather_variants.main, probe_env.main and probe_extension.main
      over every probe; any exception fails the run, and each of S1-S4's
      launchers must be launched there;
   5. the kernels as one JSON line, then the result as the last line.
 
-Imports no jax. Besides the port it uses only the jax-free host modules of
-segalign_tpu that the port itself shares (config, io) and bench.py's input
-generator; the JAX package's device code is never imported.
+Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
+else: no jax and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -59,7 +65,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CHUNK = 250_000
 EXPECTED_HSPS = 8351  # the JAX package's output on the repeat-1x pair
 # sha256 of `segalign_tpu.cli.run_segalign ref.fa query.fa --nogapped
 # --output out.segments --markend` on write_cli_pair's files
@@ -69,7 +74,7 @@ CLI_SHA256 = ("b22745639ef85cc28e256df51fcea5fb"
 # out.seg --markend` on write_rm_genome's file
 RM_CLI_SHA256 = ("1fc0f6b707ea7caa71c6ffa90efa9fa5"
                  "1cc47817aabff211cfcade08ab90a80e")
-# genome length of phase 3c (bench.py's repeat-1x reference, not cut)
+# genome length of phase 3c (the repeat-1x reference, not cut)
 RM_REAL_LEN = 4_000_000
 
 
@@ -82,7 +87,7 @@ def write_cli_pair(d: str):
     """A two-chromosome FASTA pair from a fixed seed: planted homologies at
     85-95% identity on both strands, soft-masked runs and N gaps."""
     import numpy as np
-    from segalign_tpu.io.fasta import write_fasta
+    from segalign_tpu_torch.io.fasta import write_fasta
     rng = np.random.default_rng(77)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     ref = [rng.integers(0, 4, n) for n in (120_000, 80_000)]
@@ -121,7 +126,7 @@ def write_rm_genome(d: str):
     interspersed copies of three repeat families at 80-95% identity on
     both strands, soft-masked runs every few kb and N gaps."""
     import numpy as np
-    from segalign_tpu.io.fasta import write_fasta
+    from segalign_tpu_torch.io.fasta import write_fasta
     rng = np.random.default_rng(91)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     fams = [rng.integers(0, 4, n) for n in (300, 800, 2000)]
@@ -165,6 +170,28 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps: int) -> float:
+    """Device time of one call: `reps` calls recorded once into a CUDA graph
+    and replayed, so that the host's time for a call (a wrapper's checks and
+    allocations) does not bound the reading."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _time_pair(kernel, plain, reps):
     """(kernel ms, plain ms), measured plain, kernel, kernel, plain."""
     p1 = _ms(plain, reps)
@@ -186,23 +213,58 @@ def _state_err(a, b) -> int:
     return max(_err(a[k], b[k]) for k in a)
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the float32 rate of the non-tensor units, taken for the integer
+# operations of the scans, which run on the same units.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# operations a scanned lane needs: a table lookup, an add, a max, a
+# subtract and two compares; with the match counts a compare, a select and
+# two adds more
+SCAN_OPS, COUNT_OPS = 6, 4
+STATE_BYTES = 45   # done 1, cum, maxv, maxp 4 each, counts and cdel 16 each
+
+
+def bound_ms(nbytes: float, ops: float = 0.0):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = ops / PEAK_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 class Kernels:
     """Per-kernel findings of phase 1."""
 
     def __init__(self):
         self.rows = {}
 
-    def check(self, name, label, err, ms=None, plain_ms=None):
-        print(f"  {name} {label}: max_abs_err={err}"
-              + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                 if ms is not None else ""), flush=True)
+    def check(self, name, label, err, kernel, plain, reps, nbytes, ops=0.0,
+              library=None):
+        """Fail unless err is 0; time the kernel beside its plain version
+        (wrapper_ms and plain_ms: back-to-back calls, which read the larger
+        of the host's and the card's time for a call), then the kernel
+        alone and, where one PyTorch call computes the same function, that
+        call (kernel_ms and library_ms: replayed from a CUDA graph); the
+        first check of a kernel (its main-path shape) gives its row."""
         if err != 0:
             fail(f"{name} {label} disagrees with its plain version "
                  f"(max_abs_err {err})")
+        wrapper_ms, plain_ms = _time_pair(kernel, plain, reps)
+        ms = _graph_ms(kernel, reps)
+        library_ms = None if library is None else _graph_ms(library, reps)
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  {name} {label}: max_abs_err={err} kernel_ms {ms:.4f}, "
+              f"wrapper_ms {wrapper_ms:.4f}, "
+              f"plain_ms {plain_ms:.4f}, bound_ms {bms:.4f} ({by}: "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f}e9 operations), "
+              f"library_ms "
+              + ("none" if library_ms is None else f"{library_ms:.4f}"),
+              flush=True)
         row = self.rows.setdefault(name, dict(max_abs_err=0))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if ms is not None and "ms" not in row:
-            row["ms"], row["plain_ms"] = ms, plain_ms
+        if "ms" not in row:
+            row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
 def main():
@@ -226,14 +288,13 @@ def main():
         window_scan_plain
     from segalign_tpu_torch.ops.window_scan_wide import window_scan_wide, \
         window_scan_wide_plain
-    from segalign_tpu_torch.parallel.multi import ChunkWork
     from segalign_tpu_torch.pipeline.device import (CONT_W, FIRST_W, PAD,
                                                     DeviceAligner)
     from segalign_tpu_torch.pipeline.repeat_masker import run_repeat_masker
-    from segalign_tpu.config import RMConfig, build_substitution_matrix, \
-        make_seed_config
-    from segalign_tpu.io.encode import revcomp_codes
-    import bench
+    from segalign_tpu_torch import bench_inputs
+    from segalign_tpu_torch.config import RMConfig
+    from segalign_tpu_torch.io.encode import revcomp_codes
+    CHUNK = bench_inputs.CHUNK
 
     dev = torch.device("cuda", 0)
     # ---- phase 0: environment and builds
@@ -260,14 +321,10 @@ def main():
 
     # ---- the repeat-1x pair and the aligner of phase 2
     t0 = time.time()
-    ref, query = bench.load_inputs()
+    ref, query = bench_inputs.load_inputs()
     qrc = revcomp_codes(query)
-    sc = make_seed_config("12of19")
-    sub_mat = build_substitution_matrix(910)
-    al = DeviceAligner(shape_pos=sc.shape_pos, seed_size=sc.size,
-                       transition=True, step=1, sub_mat=sub_mat, xdrop=910,
-                       hspthresh=3000, noentropy=False, chunk_size=CHUNK,
-                       device=dev)
+    settings = bench_inputs.aligner_settings(dev)
+    al = DeviceAligner(**settings)
     al.set_ref(ref)
     al.set_query(query, qrc)
     print(f"inputs: {len(ref)/1e6:.1f} Mbp x {len(query)/1e6:.1f} Mbp, "
@@ -295,14 +352,39 @@ def main():
     loc_r = torch.from_numpy(hits[0][:B]).to(dev)
     loc_q = torch.from_numpy(hits[1][:B]).to(dev)
 
+    def gather_bytes(seq, rows, width, sides=1):
+        """A gather reads each source byte once (no more than the sequence
+        holds) and 4 bytes a start, and writes every window."""
+        return sides * (min(seq.numel(), rows * width) + 4 * rows
+                        + rows * width)
+
+    def index_gather(seq, starts, width):
+        """The one PyTorch call that computes a gather: an advanced index
+        on the sequence's sliding windows (starts in range, no clamp)."""
+        return seq.unfold(0, width, 1)[starts.long()]
+
+    def scan_work(lr, lq, alive, tile, left, wc, width):
+        """(bytes, operations) a window scan needs on these rows: the
+        in-bounds lanes of the alive rows' r and q, every row's anchors
+        and state in and out, the table."""
+        if left:
+            n_inb = torch.minimum(lr, lq).long() - tile
+        else:
+            n_inb = torch.minimum(n_r - lr.long(), n_q - lq.long()) - tile
+        lanes = int(n_inb.clamp(0, width)[alive].sum())
+        nbytes = 2 * lanes + lr.numel() * (8 + 2 * STATE_BYTES) + 256
+        return nbytes, lanes * (SCAN_OPS + (COUNT_OPS if wc else 0))
+
     for Wg in (2 * W, Wc):
         s = torch.from_numpy(rng.integers(
             0, al.ref_pad.numel() - Wg, B).astype(np.int32)).to(dev)
         got = gather_rows(al.ref_pad, s, Wg)
         err = _err(got, gather_rows_plain(al.ref_pad, s, Wg))
-        K.check("gather_rows", f"B={B} W={Wg}", err, *_time_pair(
-            lambda: gather_rows(al.ref_pad, s, Wg),
-            lambda: gather_rows_plain(al.ref_pad, s, Wg), 20))
+        K.check("gather_rows", f"B={B} W={Wg}", err,
+                lambda: gather_rows(al.ref_pad, s, Wg),
+                lambda: gather_rows_plain(al.ref_pad, s, Wg), 20,
+                gather_bytes(al.ref_pad, B, Wg),
+                library=lambda: index_gather(al.ref_pad, s, Wg))
 
     q_start = pad + loc_q - W
     r_start = pad + loc_r - W
@@ -316,8 +398,10 @@ def main():
         got = gather_rows_tile(seq, s, 2 * W, T)
         err = _err(got, gather_rows_plain(seq, s, 2 * W))
         K.check("gather_rows_tile", f"B={B} W={2 * W} {label}", err,
-                *_time_pair(lambda: gather_rows_tile(seq, s, 2 * W, T),
-                            lambda: gather_rows_plain(seq, s, 2 * W), 20))
+                lambda: gather_rows_tile(seq, s, 2 * W, T),
+                lambda: gather_rows_plain(seq, s, 2 * W), 20,
+                gather_bytes(seq, B, 2 * W),
+                library=lambda: index_gather(seq, s, 2 * W))
 
     r2 = gather_rows(ref_w, r_start, 2 * W)
     q2 = gather_rows(q_w, q_start, 2 * W)
@@ -329,11 +413,16 @@ def main():
         want = first_scan_plain(*args, W=W, with_counts=wc)
         err = max(_state_err(g, w) for g, w in zip(got, want))
         alive = [int((~g["done"]).sum()) for g in got]
+        # both halves at tile 0: the state is implicit on entry (9 bytes
+        # a row come in: two anchors and the valid flag)
+        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W)
+                for left in (False, True)]
+        nbytes = sum(w[0] for w in work) - B * (7 + 2 * STATE_BYTES) - 256
         K.check("first_scan", f"B={B} W={W} counts={'on' if wc else 'off'} "
                 f"(alive after: right {alive[0]}, left {alive[1]})", err,
-                *_time_pair(lambda: first_scan(*args, W=W, with_counts=wc),
-                            lambda: first_scan_plain(*args, W=W,
-                                                     with_counts=wc), 5))
+                lambda: first_scan(*args, W=W, with_counts=wc),
+                lambda: first_scan_plain(*args, W=W, with_counts=wc), 5,
+                nbytes, sum(w[1] for w in work))
         first[wc] = got
     del r2, q2
 
@@ -364,8 +453,9 @@ def main():
                     f"{'left' if left else 'right'} "
                     f"counts={'on' if wc else 'off'} "
                     f"(alive on entry {int((~st['done']).sum())})", err,
-                    *_time_pair(lambda: window_scan(*args, **kw),
-                                lambda: window_scan_plain(*args, **kw), 10))
+                    lambda: window_scan(*args, **kw),
+                    lambda: window_scan_plain(*args, **kw), 10,
+                    *scan_work(lr, lq, ~st["done"], tile, left, wc, Wc))
 
     def check_wide(lr, lq, st, tile, left, wc, label, reps):
         """K5 on the route's windows: a gather, flipped to the left."""
@@ -383,12 +473,14 @@ def main():
                 f"{'left' if left else 'right'} "
                 f"counts={'on' if wc else 'off'} {label} (alive after "
                 f"{int((~got['done']).sum())})", err,
-                *_time_pair(lambda: window_scan_wide(*args, **kw),
-                            lambda: window_scan_wide_plain(*args, **kw),
-                            reps))
+                lambda: window_scan_wide(*args, **kw),
+                lambda: window_scan_wide_plain(*args, **kw), reps,
+                *scan_work(lr, lq, ~st["done"], tile, left, wc, Wc))
         return got
 
-    for wc in (False, True):
+    # counts on first: the device route scans with them, and a kernel's
+    # first check gives its row
+    for wc in (True, False):
         for left in (False, True):
             # the route's first window: every hit, fresh state
             st = check_wide(loc_r, loc_q,
@@ -414,30 +506,42 @@ def main():
     for name in ("gather_dma_only", "gather_extract_only", "gather_dbuf"):
         fn, plain = getattr(gv, name), getattr(gv, name + "_plain")
         err = _err(fn(seq_r, st, Wv), plain(seq_r, st, Wv))
-        K.check(name, f"B={Bv} W={Wv}", err, *_time_pair(
-            lambda: fn(seq_r, st, Wv), lambda: plain(seq_r, st, Wv), 20))
+        # load only and double-buffered gather like K2; extract only
+        # reads the starts alone and writes zeros, which one torch.zeros
+        # does too
+        nbytes = (4 * Bv + Bv * Wv if name == "gather_extract_only"
+                  else gather_bytes(seq_r, Bv, Wv))
+        K.check(name, f"B={Bv} W={Wv}", err, lambda: fn(seq_r, st, Wv),
+                lambda: plain(seq_r, st, Wv), 20, nbytes,
+                library=(lambda: torch.zeros(
+                    (Bv, Wv), dtype=torch.uint8, device=dev))
+                if name == "gather_extract_only"
+                else lambda: index_gather(seq_r, st, Wv))
+    # both sides as one index call: the sequences end to end
+    seq_both = torch.cat([seq_r, seq_q])
+    idx_both = st2.long()
+    idx_both[Bv:] += seq_r.numel()
     err = max(_err(g, w) for g, w in zip(
         gv.gather_two_sided(seq_r, seq_q, st2, Wv),
         gv.gather_two_sided_plain(seq_r, seq_q, st2, Wv)))
     K.check("gather_two_sided", f"B={Bv} x 2 sides W={Wv}", err,
-            *_time_pair(
-                lambda: gv.gather_two_sided(seq_r, seq_q, st2, Wv),
-                lambda: gv.gather_two_sided_plain(seq_r, seq_q, st2, Wv),
-                20))
+            lambda: gv.gather_two_sided(seq_r, seq_q, st2, Wv),
+            lambda: gv.gather_two_sided_plain(seq_r, seq_q, st2, Wv), 20,
+            gather_bytes(seq_r, Bv, Wv, sides=2),
+            library=lambda: index_gather(seq_both, idx_both, Wv))
     for shape, label in (((256, 512), "S3"), ((8, 128), "S4")):
         x = torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev)
         K.check("scale2", f"{shape} float32 ({label})",
-                _err(scale2(x), scale2_plain(x)),
-                *_time_pair(lambda: scale2(x), lambda: scale2_plain(x), 50))
-    del seq_r, seq_q, st, st2
+                _err(scale2(x), scale2_plain(x)), lambda: scale2(x),
+                lambda: scale2_plain(x), 50, 8 * x.numel(), x.numel(),
+                library=lambda: x * 2)
+    del seq_r, seq_q, st, st2, seq_both, idx_both
 
     # ---- phase 2: the slice at full size
     print("phase 2: DeviceAligner.map_chunks over the repeat-1x pair",
           flush=True)
-    q_len = len(query) - al.seed_size
-    work = [ChunkWork(cs, min(cs + CHUNK, q_len), rev)
-            for cs in range(0, q_len, CHUNK) for rev in (False, True)]
+    work = bench_inputs.chunk_work(query)
     wrappers = dict(gather_rows=gather_rows,
                     gather_rows_tile=gather_rows_tile,
                     first_scan=first_scan, window_scan=window_scan,
@@ -447,10 +551,11 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    results = al.map_chunks(work, depth=6)
+    results = al.map_chunks(work, depth=bench_inputs.DEPTH)
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    by_slice = {"native_pair": dict(launches)}
     n_hsps = sum(len(r.hsps) for r in results)
     n_hits = sum(r.num_hits for r in results)
     for r in results:
@@ -477,10 +582,7 @@ def main():
     print("phase 2b: DeviceAligner(device_seeding=True).map_chunks over "
           "the repeat-1x pair", flush=True)
     t0 = time.time()
-    al_d = DeviceAligner(shape_pos=sc.shape_pos, seed_size=sc.size,
-                         transition=True, step=1, sub_mat=sub_mat,
-                         xdrop=910, hspthresh=3000, noentropy=False,
-                         chunk_size=CHUNK, device=dev, device_seeding=True)
+    al_d = DeviceAligner(**settings, device_seeding=True)
     al_d.set_ref(ref, tables=al._host_tables)
     al_d.set_query(query, qrc)
     print(f"device route set-up (tables and queries to the card) "
@@ -496,6 +598,7 @@ def main():
     torch.cuda.synchronize()
     dt_d = time.time() - t0
     launches_d = {k: w.launches for k, w in wrappers.items()}
+    by_slice["device_pair"] = launches_d
     n_d = sum(len(r.hsps) for r in results_d)
     print(f"device route: {n_d} HSPs, wall {dt_d:.3f} s, "
           f"{len(query) / 1e6 / dt_d:.3f} Mbp/s, max_memory_allocated "
@@ -568,15 +671,13 @@ def main():
             fail(f"RM CLI ({route}) sha256 {digest} != {RM_CLI_SHA256}")
 
     # ---- phase 3c: the repeat masker at real size, both routes
-    print("phase 3c: run_repeat_masker on bench.py's repeat-1x reference",
+    print("phase 3c: run_repeat_masker on the repeat-1x reference",
           flush=True)
-    from segalign_tpu.io.fasta import write_fasta
     genome = ref[:RM_REAL_LEN]
     if len(genome) < len(ref):
         print(f"genome cut to {len(genome)} of {len(ref)} bases", flush=True)
     fa = os.path.join(d, "rm_ref.fa")
-    write_fasta(fa, [("ref", np.frombuffer(b"ACGTaNX&", np.uint8)[
-        genome].tobytes())])
+    bench_inputs.write_codes_fasta(fa, genome)
     cfg = RMConfig(seq_filename=fa)
     got = {}
     for route in ("native", "device"):
@@ -598,12 +699,14 @@ def main():
                 with open(os.path.join(out_dir, f), "rb") as fh:
                     files[f] = fh.read()
         got[route] = files
+        by_slice[f"rm_{route}"] = {k: w.launches
+                                   for k, w in wrappers.items()}
         n_iv = sum(v.count(b"\n") for v in files.values())
         print(f"rm {route} route: {len(genome) / 1e6:.1f} Mbp, {n_iv} "
               f"intervals, {st.num_seed_hits} hits, {st.num_hsps} HSPs, "
               f"wall {dt_rm:.3f} s, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
-              f"launches {dict((k, w.launches) for k, w in wrappers.items())}"
+              f"launches {by_slice[f'rm_{route}']}"
               f" [{card}]", flush=True)
         if n_iv == 0:
             fail(f"rm {route} route wrote no intervals")
@@ -666,7 +769,13 @@ def main():
         rows.append(dict(name=name, route="cuda", source=sources[name],
                          replaces=replaces[name], launches=launches[name],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
-                         plain_ms=r["plain_ms"]))
+                         wrapper_ms=r["wrapper_ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"],
+                         library_ms=r["library_ms"],
+                         launches_by_slice={
+                             k: v[name] for k, v in by_slice.items()
+                             if name in v}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """segalign_tpu_torch: the pairwise ungapped aligner of segalign_tpu on
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The package shares the jax-free host code of segalign_tpu (config, io,
-index, native, oracle, output, ops/finalize, ops/dedup, cli/args) and
-never imports jax. Every function takes its device explicitly: kernels run
-on CUDA tensors, and their plain PyTorch versions on CPU tensors. The CUDA
-sources under csrc/ and the shared native host library are built at first
-use (_build.py).
+The package stands alone: it keeps its own copy of the host code it needs
+(config, constants, io, index, native, output, ops/finalize, ops/dedup,
+pipeline/manifest, cli/args) and imports neither jax nor segalign_tpu.
+Every function takes its device explicitly: kernels run on CUDA tensors,
+and their plain PyTorch versions on CPU tensors. The CUDA sources under
+csrc/ and the native host library under native/ are built at first use
+(_build.py).
 """

@@ -8,12 +8,10 @@ into build/segalign_tpu_torch/ at the root of the checkout:
     Every source exports a plain `extern "C"` launcher that takes a
     cudaStream_t and returns cudaGetLastError(); nothing includes PyTorch's
     headers, which keeps the build short.
-  - the shared native host library of segalign_tpu (seeder, dedup,
-    entropy counts, gapped extension), from segalign_tpu/native/*.cpp with
-    g++. The copy committed beside those sources is built for the machine
-    that built it (-march=native) and may not load elsewhere, so the port
-    builds its own portable copy and points segalign_tpu.native at it
-    before that module loads anything.
+  - the native host library (seeder, seed table, dedup, entropy counts,
+    gapped extension), from segalign_tpu_torch/native/*.cpp with g++ and
+    portable flags (no -march=native: the library must load on whatever
+    machine the checkout runs on). native/__init__.py loads it.
 
 A failed build raises with the compiler's stderr. Builds write to a
 temporary name and rename, so processes that race on a cold build directory
@@ -30,6 +28,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
@@ -56,7 +56,8 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_kernels = None
+_launchers = None      # launcher name -> bound ctypes function
+_error_string = None
 
 
 def _digest(paths, flags) -> str:
@@ -116,42 +117,55 @@ def kernels_path() -> str:
 
 
 def kernels():
-    """The loaded kernel library (built at the first call)."""
-    global _kernels
+    """Build and load the kernel library at the first call and bind every
+    launcher once; returns the dict of bound launchers."""
+    global _launchers, _error_string
     with _lock:
-        if _kernels is None:
+        if _launchers is None:
             lib = ctypes.CDLL(kernels_path())
+            bound = {}
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+                bound[name] = fn
             lib.sa_error_string.argtypes = [ctypes.c_int]
             lib.sa_error_string.restype = ctypes.c_char_p
-            _kernels = lib
-        return _kernels
+            _error_string = lib.sa_error_string
+            _launchers = bound
+        return _launchers
 
 
 def launch(name: str, *args) -> None:
-    """Call one launcher and raise if CUDA refused the launch."""
-    lib = kernels()
-    err = getattr(lib, name)(*args)
+    """Call one launcher and raise if CUDA refused the launch. Pointers and
+    the stream are plain ints (tensor.data_ptr(), stream_of). After the
+    first call this takes no lock and looks nothing up in the library."""
+    err = (_launchers or kernels())[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
-                           f"{lib.sa_error_string(err).decode()}")
+                           f"{_error_string(err).decode()}")
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device. Read
+    through torch._C: torch.cuda.current_stream(device).cuda_stream gives
+    the same handle but builds a Stream object first, which costs more
+    host time than the launch itself. torch._C._cuda_getCurrentRawStream is
+    not a public name (verified with torch 2.11.0): if a later torch drops
+    it, every launch raises AttributeError, and tests/test_torch_cuda.py
+    holds it to the public handle, under a side stream too."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def native_lib_path() -> str:
-    """Build the shared native host library if its hash is new, point
-    segalign_tpu.native at it, and return its path."""
-    import segalign_tpu.native as native
-    srcs = list(native._SRCS)
+    """Build the native host library (native/*.cpp) if its hash is new;
+    return its path. native/__init__.py loads it from there."""
+    srcs = sorted(glob.glob(os.path.join(_PKG, "native", "*.cpp")))
     out = os.path.join(BUILD_DIR, f"native-{_digest(srcs, GXX_FLAGS)}.so")
     with _lock:
         if not os.path.exists(out):
             _compile(["g++", *GXX_FLAGS], srcs, out)
-        # segalign_tpu.native rebuilds a library older than its sources in
-        # place; a fresh mtime keeps it from overwriting this one
-        os.utime(out)
-        if native._lib is None:
-            native._LIB = out
     return out

@@ -1,0 +1,133 @@
+"""Synthetic benchmark inputs: a genome pair with repeat and homology
+structure, and the aligner settings, the chunk list and the repeat-masker
+input the pair is measured with.
+
+The generators draw from one numpy Generator in a fixed order, so a seed
+fixes the pair: load_inputs() gives the repeat-1x 4 Mbp x 4 Mbp pair
+(rng 2024) on which the aligner finds 8351 HSPs. chip_smoke.py drives the
+port's paths on it, and scripts/slice_walls.py times the same slices: both
+take the settings, the chunk list and the FASTA from here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .config import build_substitution_matrix, make_seed_config
+from .io.fasta import write_fasta
+from .parallel.multi import ChunkWork
+
+CHUNK = 250_000
+# the settings the pair is aligned with: seed pattern, transitions, step,
+# the score of the default substitution matrix's wall, x-drop, HSP
+# threshold, entropy adjustment on
+SEED = "12of19"
+TRANSITION = True
+STEP = 1
+XDROP = 910
+HSPTHRESH = 3000
+NOENTROPY = False
+# chunk-strands map_chunks keeps in flight on the native seeding route
+DEPTH = 6
+
+
+def make_repeat_library(rng):
+    """Shared repeat library for a genome PAIR: interspersed repeat family
+    consensus sequences (SINE/LINE-like length mix) and microsatellite
+    units. Both genomes draw copies from the SAME library — ancient
+    shared families are what give real pairs their heavy-tailed
+    cross-genome seed-hit distribution."""
+    fams = [(150, 0.10), (300, 0.10), (600, 0.14), (1500, 0.16),
+            (5000, 0.18)]
+    lib = [(rng.integers(0, 4, ln).astype(np.uint8), div)
+           for ln, div in fams]
+    units = [np.array(u, np.uint8) for u in
+             ([0, 3], [1, 0], [1, 0, 2], [3, 3, 0, 2, 2, 1])]
+    return lib, units
+
+
+def synth_genome_repeats(rng, n, lib, homolog_from=None, identity=0.85,
+                         homology_frac=0.10, repeat_mult=1.0):
+    """Repeat-structured generator: interspersed family copies (fragmented,
+    per-copy diverged, mostly soft-masked like RepeatMasker output),
+    shared-unit tandem arrays, planted diverged homology, soft-masked runs
+    and N gaps. repeat_mult scales UNMASKED repeat content and thereby the
+    seed-hit density (reported, not assumed)."""
+    fams, units = lib
+    seq = rng.integers(0, 4, n).astype(np.uint8)
+    # ~25% repeat-derived sequence, ~88% of copies soft-masked: genomes
+    # fed to whole-genome aligners are post-RepeatMasker (that is what
+    # the reference RM mode produces), so only the masker's misses stay
+    # seedable — those drive the cross-genome repeat HSPs
+    budget = int(n * 0.25 * 0.12 * repeat_mult)
+    while budget > 0:
+        cons, div = fams[int(rng.integers(0, len(fams)))]
+        ln = len(cons)
+        take = int(rng.integers(ln // 4, ln + 1))   # 5'-truncated copies
+        frag = cons[ln - take:]
+        mut = rng.random(take) < div * rng.uniform(0.3, 1.7)
+        copy = np.where(mut, (frag + rng.integers(1, 4, take)) % 4, frag)
+        p = int(rng.integers(0, n - take))
+        if rng.random() < 0.88:
+            seq[p:p + take] = 4        # soft-masked copy: no seeds
+        else:
+            seq[p:p + take] = copy
+            budget -= take
+    for _ in range(max(1, n // 250_000)):           # tandem arrays
+        u = units[int(rng.integers(0, len(units)))]
+        reps = int(rng.integers(20, 400))
+        arr = np.tile(u, reps)[:8000]
+        p = int(rng.integers(0, n - len(arr)))
+        if rng.random() < 0.85:
+            seq[p:p + len(arr)] = 4
+        else:
+            seq[p:p + len(arr)] = arr
+    if homolog_from is not None:
+        placed = 0
+        total = int(n * homology_frac)
+        while placed < total:
+            ln = int(rng.integers(2_000, 30_000))
+            src = int(rng.integers(0, len(homolog_from) - ln))
+            dst = int(rng.integers(0, n - ln))
+            core = homolog_from[src:src + ln]
+            mut = rng.random(ln) >= identity
+            seq[dst:dst + ln] = np.where(
+                mut, (core + rng.integers(1, 4, ln)) % 4, core)
+            placed += ln
+    for _ in range(n // 1_000_000):                 # N gaps
+        p = int(rng.integers(0, n - 500))
+        seq[p:p + int(rng.integers(50, 500))] = 5
+    return seq
+
+
+def load_inputs(ref_mbp: float = 4.0, query_mbp: float = 4.0):
+    """The repeat-1x pair (ref, query) as uint8 code arrays, rng 2024."""
+    rng = np.random.default_rng(2024)
+    lib = make_repeat_library(rng)
+    ref = synth_genome_repeats(rng, int(ref_mbp * 1e6), lib)
+    query = synth_genome_repeats(rng, int(query_mbp * 1e6), lib,
+                                 homolog_from=ref)
+    return ref, query
+
+
+def aligner_settings(device) -> dict:
+    """DeviceAligner's keyword arguments for the pair."""
+    sc = make_seed_config(SEED)
+    return dict(shape_pos=sc.shape_pos, seed_size=sc.size,
+                transition=TRANSITION, step=STEP,
+                sub_mat=build_substitution_matrix(XDROP), xdrop=XDROP,
+                hspthresh=HSPTHRESH, noentropy=NOENTROPY, chunk_size=CHUNK,
+                device=device)
+
+
+def chunk_work(query) -> list:
+    """Both strands of every CHUNK of the query, in map_chunks' order."""
+    q_len = len(query) - make_seed_config(SEED).size
+    return [ChunkWork(cs, min(cs + CHUNK, q_len), rev)
+            for cs in range(0, q_len, CHUNK) for rev in (False, True)]
+
+
+def write_codes_fasta(path: str, codes, name: str = "ref") -> None:
+    """A code array as a one-record FASTA (the repeat masker's input)."""
+    write_fasta(path, [(name, np.frombuffer(b"ACGTaNX&", np.uint8)[
+        codes].tobytes())])

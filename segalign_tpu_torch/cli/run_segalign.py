@@ -3,12 +3,12 @@
 Counterpart of segalign_tpu/cli/run_segalign.py, with the same options and
 exit codes (4 file not found, 5 permissions, 6 LASTZ failure, 8 2bit
 conversion failed), the same LASTZ pool or native gapped stage and the same
-sort -V merge, all shared with the JAX package; the ungapped stage is the
-port's run_pairwise. Two choices are the port's own: --device, the torch
-device of the ungapped stage (default cuda; the run fails when CUDA is not
-available rather than running elsewhere), and the JAX package's
-SEGALIGN_DEVICE_SEEDING=1, which here selects the aligner's device-seeding
-route explicitly.
+sort -V merge (the port's own copies of that host code); the ungapped
+stage is the port's run_pairwise. Two choices are the port's own:
+--device, the torch device of the ungapped stage (default cuda; the run
+fails when CUDA is not available rather than running elsewhere), and the
+JAX package's SEGALIGN_DEVICE_SEEDING=1, which here selects the aligner's
+device-seeding route explicitly.
 """
 
 from __future__ import annotations
@@ -21,12 +21,11 @@ import sys
 
 import torch
 
-from segalign_tpu.cli.args import (apply_multihost_args,
-                                   build_pairwise_parser,
-                                   pairwise_config_from_args)
-from segalign_tpu.output.gapped import (LastzPool, check_lastz_errors,
-                                        have_fa_to_two_bit, have_lastz)
-from segalign_tpu.output.merge import merge_outputs, sorted_glob
+from ..output.gapped import (LastzPool, check_lastz_errors,
+                             have_fa_to_two_bit, have_lastz)
+from ..output.merge import merge_outputs, sorted_glob
+from .args import (apply_multihost_args, build_pairwise_parser,
+                   pairwise_config_from_args)
 
 
 def build_parser():
@@ -118,7 +117,7 @@ def main(argv=None) -> int:
 
         if gapped and mode == "native":
             print("\nRunning native gapped extension ...", file=sys.stderr)
-            from segalign_tpu.output.native_gapped import run_native_gapped
+            from ..output.native_gapped import run_native_gapped
             cfg.gapped = True
             run_native_gapped(cfg, out_dir)
             for f in sorted_glob(os.path.join(out_dir, "tmp*.segments")):

@@ -16,12 +16,11 @@ import random
 import shutil
 import sys
 
-from segalign_tpu.cli.args import (apply_multihost_args, build_rm_parser,
-                                   rm_config_from_args)
-from segalign_tpu.cli.run_segalign_repeat_masker import HEADER
-from segalign_tpu.output.merge import sorted_glob
-
+from ..output.merge import sorted_glob
+from .args import apply_multihost_args, build_rm_parser, rm_config_from_args
 from .run_segalign import resolve_device
+
+HEADER = "#name1  zstart1 end1  name2 zstart2+  end2+\n"
 
 
 def build_parser():

@@ -6,13 +6,19 @@
 // to left; lanes [W, 2W) are the right extension. The initial state is
 // implicit (cum = maxv = 0, maxp = -1 right and 0 left, zero counts).
 //
-// Bound on the H100: the per-lane work is a dependent chain (a running sum,
-// a running max and the drop test), so the TPU's log-step lane scans buy
-// nothing here; one thread walks one (row, direction) in order. The bytes
-// read are 2 x 2W per row, once (twice with counts on), in 16-byte loads
-// that stay in L1 while the thread walks them; the table lookups hit a
-// 256-byte table in shared memory. Blocks are one direction each, so a
-// warp never diverges on the direction.
+// Bound on the H100: bytes. The function reads the 2 x 2W bytes of a
+// row's r2 and q2 once and writes 2 x 45 bytes of state; at the main path's
+// shape (B = 2^17, W = 512) that is 268.4 MB of windows, 1.2 MB of anchors
+// and 11.8 MB of state, 0.084 ms at 3.35 TB/s. Its arithmetic is about six
+// integer operations a lane (a table lookup, an add, a max, a subtract and
+// two compares), 0.8e9 in all, 0.012 ms at the 67e12 a second of the
+// card's non-tensor units. A row whose window ends at a sequence end needs
+// fewer bytes (only in-bounds lanes are read). Design (scan.cuh): one warp
+// walks one (row, direction); its 32 threads load 16 contiguous bytes each,
+// 512 contiguous bytes an array, which at W = 512 is the whole window in
+// one step, and shuffle scans join the threads' partial sums and maxima.
+// Blocks are one direction each, so a warp never diverges on the
+// direction; eight warps a block.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -20,46 +26,64 @@
 
 namespace {
 
-__global__ void first_scan_kernel(const uint8_t* __restrict__ r2,
-                                  const uint8_t* __restrict__ q2,
-                                  const int32_t* __restrict__ loc_r,
-                                  const int32_t* __restrict__ loc_q,
-                                  const bool* __restrict__ valid,
-                                  const int32_t* __restrict__ sub_g, int B,
-                                  int W, int32_t xdrop, int32_t ref_len,
-                                  int32_t query_len, bool with_counts,
-                                  sa::State right, sa::State left) {
-  __shared__ int32_t sub[64];
-  sa::load_sub(sub, sub_g);
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const bool is_left = blockIdx.y == 1;
-  const sa::State& out = is_left ? left : right;
-  const int32_t init_maxp = is_left ? 0 : -1;
-  const int32_t zero4[4] = {0, 0, 0, 0};
+// One direction of one row, by one warp. The window's bytes, the anchors
+// and the valid flag are loaded together, before the branch on the flag
+// (a row that is not valid reads a window it does not use; such rows are
+// few).
+template <bool LEFT>
+__device__ __forceinline__ void first_half(
+    const uint8_t* __restrict__ r, const uint8_t* __restrict__ q,
+    const int32_t* __restrict__ loc_r, const int32_t* __restrict__ loc_q,
+    const bool* __restrict__ valid, const sa::Tables& tab,
+    const int32_t* zero4, int row, int W, int32_t xdrop, int32_t ref_len,
+    int32_t query_len, bool with_counts, const sa::State& out) {
+  const int lane = threadIdx.x & 31;
+  const sa::Offsets o0 = sa::first_chunk<LEFT>(r, q, W);
+  const int64_t lr = loc_r[row], lq = loc_q[row];
+  const int32_t init_maxp = LEFT ? 0 : -1;
   if (!valid[row]) {
-    out.done[row] = true;
-    out.cum[row] = 0;
-    out.maxv[row] = 0;
-    out.maxp[row] = init_maxp;
-    for (int b = 0; b < 4; ++b) {
-      out.counts[row * 4 + b] = 0;
-      out.cdel[row * 4 + b] = 0;
+    if (lane == 0) {
+      out.done[row] = true;
+      out.cum[row] = 0;
+      out.maxv[row] = 0;
+      out.maxp[row] = init_maxp;
+    }
+    if (lane < 4) {
+      out.counts[row * 4 + lane] = 0;
+      out.cdel[row * 4 + lane] = 0;
     }
     return;
   }
-  const int64_t lr = loc_r[row], lq = loc_q[row];
+  // left: lane W - p holds the byte at extension offset p = 1 .. W
+  const int64_t a = ref_len - lr, b = query_len - lq;
+  const int64_t lim = LEFT ? (lr < lq ? lr : lq) + 1 : (a < b ? a : b);
+  sa::scan_window<LEFT>(r, q, W, tab, xdrop, LEFT ? 1 : 0, lim, o0, 0, 0,
+                        init_maxp, zero4, zero4, with_counts, out, row);
+}
+
+__global__ void __launch_bounds__(sa::WARPS_PER_BLOCK * 32)
+    first_scan_kernel(const uint8_t* __restrict__ r2,
+                      const uint8_t* __restrict__ q2,
+                      const int32_t* __restrict__ loc_r,
+                      const int32_t* __restrict__ loc_q,
+                      const bool* __restrict__ valid,
+                      const int32_t* __restrict__ sub_g, int B, int W,
+                      int32_t xdrop, int32_t ref_len, int32_t query_len,
+                      bool with_counts, sa::State right, sa::State left) {
+  __shared__ sa::Tables tab;
+  __shared__ int32_t zero4[4];
+  if (threadIdx.x < 4) zero4[threadIdx.x] = 0;
+  sa::load_tables(tab, sub_g);
+  const int row = blockIdx.x * sa::WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (row >= B) return;
   const size_t base = static_cast<size_t>(row) * 2 * W;
-  if (is_left) {
-    // lane W - p holds the byte at extension offset p = 1 .. W
-    const int64_t lim = (lr < lq ? lr : lq) + 1;
-    sa::scan_window<true>(r2 + base, q2 + base, W, sub, xdrop, 1, lim, 0, 0,
-                          init_maxp, zero4, zero4, with_counts, out, row);
+  if (blockIdx.y == 1) {
+    first_half<true>(r2 + base, q2 + base, loc_r, loc_q, valid, tab, zero4,
+                     row, W, xdrop, ref_len, query_len, with_counts, left);
   } else {
-    const int64_t a = ref_len - lr, b = query_len - lq;
-    sa::scan_window<false>(r2 + base + W, q2 + base + W, W, sub, xdrop, 0,
-                           a < b ? a : b, 0, 0, init_maxp, zero4, zero4,
-                           with_counts, out, row);
+    first_half<false>(r2 + base + W, q2 + base + W, loc_r, loc_q, valid, tab,
+                      zero4, row, W, xdrop, ref_len, query_len, with_counts,
+                      right);
   }
 }
 
@@ -85,9 +109,9 @@ extern "C" cudaError_t sa_first_scan(
                        static_cast<int32_t*>(l_counts),
                        static_cast<int32_t*>(l_cdel)};
   if (B == 0) return cudaSuccess;
-  const int threads = 128;
-  const dim3 grid((B + threads - 1) / threads, 2);
-  first_scan_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((B + sa::WARPS_PER_BLOCK - 1) / sa::WARPS_PER_BLOCK, 2);
+  first_scan_kernel<<<grid, sa::WARPS_PER_BLOCK * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(r2), static_cast<const uint8_t*>(q2),
       static_cast<const int32_t*>(loc_r), static_cast<const int32_t*>(loc_q),
       static_cast<const bool*>(valid), static_cast<const int32_t*>(sub), B, W,

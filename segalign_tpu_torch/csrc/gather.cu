@@ -7,7 +7,10 @@
 // sequence. The output is uint8: the values equal the TPU kernels' int32
 // at a quarter of the bytes.
 //
-// Bound on the H100: bytes moved, B x W written and as much read. The TPU
+// Bound on the H100: bytes moved, B x W written, the sequence's bytes read
+// once (the windows overlap: a 4 Mbp sequence is 4.2 MB) and 4 bytes a
+// start: at the main path's shapes (B = 2^17, W = 1024 and 2048) 138.7 MB
+// and 273.0 MB, 0.041 ms and 0.081 ms at 3.35 TB/s; no arithmetic. The TPU
 // kernels pay a fixed cost per row DMA (aligned supersets, rolls); here a
 // row is a contiguous read that a warp covers in 128-byte pieces, 4 bytes a
 // thread, and the output is written in aligned 32-bit words.

@@ -7,13 +7,20 @@
 // order with extension offset p = tile + W - f for storage lane f. Rows
 // already done pass through unchanged.
 //
-// Bound on the H100: as for K1, a dependent chain per lane; one thread walks
-// one row's 2048 lanes in order, in 16-byte loads (scan.cuh,
-// carried_scan_kernel). The cohort is at most a few ten thousand rows, so
-// the launch is latency bound: done rows exit at once, and a row stops
-// reading past its last in-bounds lane. The TPU kernel's shortcuts (a bf16
-// matmul prefix sum, 16-bit packed count sums) are not carried over: sums
-// here are exact int32.
+// Bound on the H100: bytes. An alive row's 2 x W window bytes are read
+// once (fewer at a sequence end), and every row's 45 bytes of state and 8
+// of anchors are read and 45 written. At the main path's shape (16384
+// rows, 8192 alive on entry, W = 2048) that is 33.6 MB of windows and
+// 1.6 MB of state, 0.0105 ms at 3.35 TB/s; the arithmetic (about six
+// integer operations a lane, 0.1e9) is 0.0015 ms at 67e12 a second. So
+// small a launch is near its floor of a few microseconds, and what counts
+// is to spread the alive rows over the whole card: a warp walks a row
+// (scan.cuh, carried_scan_kernel), so 8192 alive rows are 262144 threads
+// on all 132 SMs, each step of a warp reads 512 contiguous bytes an array,
+// four steps a window, a done row's warp copies its state and exits, and a
+// row stops reading past its last in-bounds lane. The TPU kernel's
+// shortcuts (a bf16 matmul prefix sum, 16-bit packed count sums) are not
+// carried over: sums here are exact int32.
 #include <cstdint>
 #include <cuda_runtime.h>
 

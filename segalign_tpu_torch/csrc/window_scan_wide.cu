@@ -8,15 +8,19 @@
 // edge test come from the anchors; rows already done pass through
 // unchanged.
 //
-// Bound on the H100: the same dependent chain per lane as K4 (a running
-// sum, a running max and the drop test), here over up to 2^17 rows of
-// W = 2048 at the route's first window, so 512 MiB of windows per launch.
-// One thread walks one row in 16-byte loads that ascend in both directions
-// (scan.cuh, carried_scan_kernel without the raw layout): each load brings
-// 16 lanes, the table lookups hit 256 bytes of shared memory, done rows
-// exit at once and a row stops reading past its last in-bounds lane. The
-// TPU kernel's log-step roll scans buy nothing on a thread that walks the
-// lanes in order; its exact int32 sums are kept.
+// Bound on the H100: bytes. At the device route's first window (B = 2^17
+// rows, all alive, W = 2048) the function reads 2 x 2^17 x 2048 bytes of
+// windows, 536.9 MB, and reads and writes 12.8 MB of state and anchors:
+// 0.164 ms at 3.35 TB/s, against 1.6e9 integer operations (about six a
+// lane), 0.024 ms at 67e12 a second. Later windows hold fewer rows, half
+// of them done: 16384 rows with 8192 alive are 0.0105 ms, as for K4.
+// Design (scan.cuh, carried_scan_kernel without the raw layout): a warp
+// walks a row in four steps of 512 lanes, each thread loading 16
+// contiguous bytes of r and of q, ascending in both directions since the
+// caller has flipped the left windows; shuffle scans join the threads; a
+// done row's warp copies its state and exits, and a row stops reading
+// past its last in-bounds lane. Sums are exact int32, as the TPU kernel's
+// are.
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -140,12 +140,14 @@ def check_tensors(args, device, W: int):
     16-byte aligned, and W a multiple of 16 in (0, 4096] (the scan kernels
     read rows in 16-byte loads and count in 16-bit fields)."""
     for name, t, dt, shape in args:
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+        # every scan launch runs these: `is not` on a dtype and Size
+        # against a tuple are the cheap forms of the comparisons
+        if t.dtype is not dt or t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor of "
                              f"shape {shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, expected {device}")
-        if t.dtype == torch.uint8 and t.data_ptr() % 16:
+        if dt is torch.uint8 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if W <= 0 or W % 16 or W > 4096:
         raise ValueError(f"W={W} must be a multiple of 16 in (0, 4096]")

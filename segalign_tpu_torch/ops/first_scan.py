@@ -66,7 +66,7 @@ def first_scan(r2, q2, loc_r, loc_q, valid, sub, xdrop: int, ref_len: int,
         "sa_first_scan", r2.data_ptr(), q2.data_ptr(), loc_r.data_ptr(),
         loc_q.data_ptr(), valid.data_ptr(), sub.data_ptr(), B, W, int(xdrop),
         int(ref_len), int(query_len), int(with_counts), *ptrs,
-        torch.cuda.current_stream(r2.device).cuda_stream)
+        _build.stream_of(r2.device))
     first_scan.launches += 1
     return outs[0], outs[1]
 

@@ -46,7 +46,7 @@ def gather_rows_plain(seq: torch.Tensor, starts: torch.Tensor,
 def _launch(name, seq, starts, W, *extra):
     out = torch.empty((starts.numel(), W), dtype=torch.uint8,
                       device=seq.device)
-    stream = torch.cuda.current_stream(seq.device).cuda_stream
+    stream = _build.stream_of(seq.device)
     _build.launch(name, seq.data_ptr(), seq.numel(), starts.data_ptr(),
                   starts.numel(), W, *extra, out.data_ptr(), stream)
     return out

@@ -82,10 +82,6 @@ def gather_two_sided_plain(seq_r, seq_q, starts2, W):
             gather_rows_plain(seq_q, starts2[B:], W))
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _s1(name, launcher, plain, doc):
     def wrapper(seq: torch.Tensor, starts: torch.Tensor,
                 W: int) -> torch.Tensor:
@@ -95,7 +91,8 @@ def _s1(name, launcher, plain, doc):
         out = torch.empty((starts.numel(), W), dtype=torch.uint8,
                           device=seq.device)
         _build.launch(launcher, seq.data_ptr(), starts.data_ptr(),
-                      starts.numel(), W, out.data_ptr(), _stream(seq))
+                      starts.numel(), W, out.data_ptr(),
+                      _build.stream_of(seq.device))
         wrapper.launches += 1
         return out
 
@@ -132,7 +129,7 @@ def gather_two_sided(seq_r: torch.Tensor, seq_q: torch.Tensor,
             for _ in range(2))
     _build.launch("sa_gather_two_sided", seq_r.data_ptr(), seq_q.data_ptr(),
                   starts2.data_ptr(), B, W, r.data_ptr(), q.data_ptr(),
-                  _stream(seq_r))
+                  _build.stream_of(seq_r.device))
     gather_two_sided.launches += 1
     return r, q
 

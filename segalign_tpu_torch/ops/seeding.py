@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from segalign_tpu.constants import TRANSITION_MASK
+from ..constants import TRANSITION_MASK
 
 
 def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,

@@ -42,7 +42,7 @@ def launch_window(name, r, q, loc_r, loc_q, st, sub, xdrop, tile, ref_len,
         r.shape[0], W, int(xdrop), int(tile), int(ref_len), int(query_len),
         int(left), int(with_counts),
         *[out[k].data_ptr() for k in STATE_KEYS],
-        torch.cuda.current_stream(r.device).cuda_stream)
+        _build.stream_of(r.device))
     return out
 
 

@@ -4,8 +4,8 @@ candidates -> HSPs.
 Counterpart of segalign_tpu/pipeline/device.py DeviceAligner and its two
 seeding routes, chosen when the aligner is made:
 
-  - native (the default): the host seeds each chunk with the shared
-    native seeder (segalign_tpu/native/seeder.cpp); the device extends the
+  - native (the default): the host seeds each chunk with the native
+    seeder (native/seeder.cpp); the device extends the
     hits in programs of at most HBUF rows (ops/extend_fused.py) and
     compacts and dedups the candidates (_pack_compact); the host recomputes
     the entropy counts of the candidates that need them.
@@ -18,7 +18,7 @@ seeding routes, chosen when the aligner is made:
     candidates compacted and fetched.
 
 On both, the host finalizes entropy and dedups each logical hit batch with
-the shared numpy/C++ code (segalign_tpu/ops). In rm_mode (the repeat
+the host code of ops/finalize.py and ops/dedup.py. In rm_mode (the repeat
 masker) hits are restricted to a window of the reference, minus-strand
 HSPs are remapped onto the forward strand, and the dedup is dedup_rm.
 
@@ -40,13 +40,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from segalign_tpu.index.seed_table import build_seed_table
-from segalign_tpu.ops.dedup import dedup_pairwise, dedup_rm
-from segalign_tpu.ops.finalize import finalize_candidates
-
-from .. import _build
+from ..index.seed_table import build_seed_table
+from ..native import ChunkSeeder, entropy_counts_host, get_lib
+from ..ops.dedup import dedup_pairwise, dedup_rm
 from ..ops.extend3 import extend_hits_windowed
 from ..ops.extend_fused import Q_TILE, R_TILE, extend_fields_program
+from ..ops.finalize import finalize_candidates
 from ..ops.gather import tile_spans_ok
 from ..ops.hits import compact_mask, expand_hits
 from ..ops.padding import pad_sequence
@@ -201,14 +200,12 @@ class DeviceAligner:
         self.device = torch.device(device)
         self.sub = torch.as_tensor(
             np.asarray(sub_mat, np.int32).reshape(-1)).to(self.device)
-        # the shared host code (dedup, encoding) loads the port's copy of
-        # the native library on both routes; the native route seeds with it
-        _build.native_lib_path()
+        # the host code of both routes (seed table, dedup, entropy counts)
+        # runs in the native library: build and load it now, so that a
+        # failure raises here; the native route also seeds with it
+        get_lib()
         self._seeder = None
         if not device_seeding:
-            from segalign_tpu.native import ChunkSeeder, get_lib
-            if get_lib() is None:
-                raise RuntimeError("the native host library failed to load")
             self._seeder = ChunkSeeder(chunk_size, self.kmer_size,
                                        transition)
         self.ref_len = 0
@@ -397,7 +394,6 @@ class DeviceAligner:
         the candidates in the entropy band only (rows outside it have
         entropy 1 and never read counts)."""
         if counts is None:
-            from segalign_tpu.native import entropy_counts_host
             counts = np.zeros((len(rs), 4), np.int64)
             if not self.noentropy:
                 band = ((total >= self.hspthresh)

@@ -1,7 +1,6 @@
 """Pairwise whole-genome alignment, ungapped stage (host orchestration).
 
-Counterpart of segalign_tpu/pipeline/pairwise.py run_pairwise, which the
-port cannot share: it imports the JAX package's device pool. Reference
+Counterpart of segalign_tpu/pipeline/pairwise.py run_pairwise. Reference
 blocks are the outer loop and query blocks the inner one, so each
 reference block's seed table is built once; the chunks of each interval
 stream through the one device's aligner. Multi-host runs and the sharded
@@ -18,13 +17,12 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from segalign_tpu.config import Config
-from segalign_tpu.io.blocks import build_arena, chunk_interval, plan_intervals
-from segalign_tpu.io.fasta import read_fasta
-from segalign_tpu.logging_util import log_event
-from segalign_tpu.output.segments import (PrinterContext,
-                                          write_interval_segments)
-from segalign_tpu.pipeline.manifest import Manifest
+from ..config import Config
+from ..io.blocks import build_arena, chunk_interval, plan_intervals
+from ..io.fasta import read_fasta
+from ..logging_util import log_event
+from ..output.segments import PrinterContext, write_interval_segments
+from .manifest import Manifest
 
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
 

@@ -29,13 +29,13 @@ from typing import List
 
 import numpy as np
 
-from segalign_tpu.config import RMConfig
-from segalign_tpu.constants import E_NT
-from segalign_tpu.io.blocks import Chrom
-from segalign_tpu.io.encode import encode, revcomp_codes
-from segalign_tpu.io.fasta import read_fasta
-from segalign_tpu.logging_util import log_event
-from segalign_tpu.pipeline.manifest import Manifest
+from ..config import RMConfig
+from ..constants import E_NT
+from ..io.blocks import Chrom
+from ..io.encode import encode, revcomp_codes
+from ..io.fasta import read_fasta
+from ..logging_util import log_event
+from .manifest import Manifest
 
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
 from .pairwise import PipelineStats

@@ -1,9 +1,11 @@
-"""The port's measurement scripts, counterparts of scripts/
-exp_gather_variants.py, probe_env.py and probe_extension.py:
+"""The port's measurement scripts: the counterparts of scripts/
+exp_gather_variants.py, probe_env.py and probe_extension.py, and one of
+the port's own (the slices' walls and kernel time):
 
     python -m segalign_tpu_torch.scripts.exp_gather_variants [inner]
     python -m segalign_tpu_torch.scripts.probe_env [probe ...]
     python -m segalign_tpu_torch.scripts.probe_extension [probe ...]
+    python -m segalign_tpu_torch.scripts.slice_walls [runs]
 
 Each measures the CUDA device and nothing else: without one it exits at
 once with a message, and no probe runs on the CPU in its place. No script

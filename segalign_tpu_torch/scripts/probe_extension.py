@@ -18,7 +18,14 @@ Probes:
                 arrays
   overhead      a tiny torch op, a mid (8192, 512) mul+sum, S4 (the hand
                 kernel sa_scale2, ops/probe.py) on (8, 128) f32, the tiny
-                torch op again
+                torch op again; then what one launch through the port's
+                launcher costs the host, piece by piece, on (256, 512) f32
+                (microseconds a call, `calls` back to back with one
+                synchronize at the end, best of five): `x * 2` and
+                `torch.mul(out=)`, the scale2 wrapper, `_build.launch`
+                with the pointers ready, the bound ctypes function alone,
+                the stream handle read the public way and through
+                `_build.stream_of`, `torch.empty_like`, two `data_ptr()`
   scan2         the pieces of the window scan at (B, 128) and (B, 512):
                 lookup, cumsum, cummax, the bf16 matmul cumsum, the full
                 scan (torch has no associative scan: that line is left out)
@@ -29,11 +36,13 @@ Probes:
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
 
 from . import host_bench, print_card, require_cuda
+from .. import _build
 from ..ops.extend3 import init_state
 from ..ops.gather import gather_rows
 from ..ops.probe import scale2
@@ -134,6 +143,45 @@ def probe_overhead(dev, iters):
     host_bench("tiny hand kernel sa_scale2 (8, 128) f32", lambda: scale2(x),
                2, iters)
     host_bench("tiny torch again", lambda: x + 1, 2, iters)
+    _launch_cost(dev, 200 * iters)
+
+
+def _best_us(fn, calls: int, rounds: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    return best * 1e6
+
+
+def _launch_cost(dev, calls):
+    x = torch.ones((256, 512), device=dev)
+    out = torch.empty_like(x)
+    fn = _build.kernels()["sa_scale2"]
+    stream = _build.stream_of(dev)
+    xp, op, n = x.data_ptr(), out.data_ptr(), x.numel()
+    pieces = [
+        ("torch x * 2", lambda: x * 2),
+        ("torch.mul(x, 2, out=out)", lambda: torch.mul(x, 2, out=out)),
+        ("scale2(x), the wrapper", lambda: scale2(x)),
+        ("_build.launch, pointers ready",
+         lambda: _build.launch("sa_scale2", xp, n, op, stream)),
+        ("the bound ctypes function alone", lambda: fn(xp, n, op, stream)),
+        ("torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("_build.stream_of(dev)", lambda: _build.stream_of(dev)),
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("x.data_ptr(), out.data_ptr()",
+         lambda: (x.data_ptr(), out.data_ptr())),
+    ]
+    print(f"us per call, {calls} back to back, best of 5", flush=True)
+    for label, piece in pieces:
+        print(f"{label}: {_best_us(piece, calls):.3f}", flush=True)
 
 
 def probe_scan2(dev, iters):

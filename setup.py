@@ -6,7 +6,8 @@ setup(
     description="TPU-native whole-genome aligner (SegAlign capabilities)",
     packages=find_packages(exclude=["tests"]),
     package_data={"segalign_tpu.native": ["*.cpp"],
-                  "segalign_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "segalign_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "segalign_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

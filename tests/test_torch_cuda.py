@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from segalign_tpu.config import build_substitution_matrix
+from segalign_tpu_torch.config import build_substitution_matrix
 from segalign_tpu_torch.ops.extend3 import STATE_KEYS
 from segalign_tpu_torch.ops.first_scan import first_scan, first_scan_plain
 from segalign_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
@@ -320,3 +320,262 @@ def test_scale2(dev, shape):
     torch.cuda.synchronize()
     assert scale2.launches == before + 1
     assert torch.equal(got.cpu(), scale2_plain(x))
+
+
+# ---- the warp-per-row scans (K1, K4, K5) at their edges
+
+EDGES = [0, 1, 15, 16, 17, 511, 512, 513]
+
+
+def _edge_windows(rng, B, W, kind):
+    """Random (B, W) window pairs: rows of every identity, clean rows that
+    run through the window, walls, masked and N runs; and the table."""
+    r = rng.integers(0, 4, (B, W)).astype(np.uint8)
+    q = r.copy()
+    mut = rng.random((B, W)) < rng.uniform(0.0, 0.5, (B, 1))
+    q[mut] = rng.integers(0, 8, int(mut.sum()))
+    r[B // 2:][rng.random((B - B // 2, W)) < 0.01] = 7
+    q[30:40] = r[30:40]
+    r[5:9, 30:40] = 4
+    q[7:12, 20:28] = 5
+    if kind == "default":
+        sub = SUB
+    elif kind == "ties":
+        sub = rng.integers(-2, 3, 64).astype(np.int32)
+    else:   # sums that wrap
+        sub = rng.integers(-2**30, 2**30, 64).astype(np.int32)
+    return r, q, sub
+
+
+def _edge_anchors(rng, B, W, n, tile, left):
+    """Anchors that put the in-bounds length of row i at EDGES[i], W - 1,
+    W and W + 5, through the ref or the query in turn."""
+    loc_r = rng.integers(tile + 2 * W, n - tile - 2 * W, B).astype(np.int32)
+    loc_q = rng.integers(tile + 2 * W, n - tile - 2 * W, B).astype(np.int32)
+    for i, e in enumerate(EDGES + [W - 1, W, W + 5]):
+        (loc_r if i % 2 else loc_q)[i] = tile + e if left else n - tile - e
+    return loc_r, loc_q
+
+
+def _edge_state(rng, B, tile, kind):
+    if kind == "wrap":
+        cum = rng.integers(-2**31, 2**31, B).astype(np.int32)
+        maxv = rng.integers(-2**31, 2**31, B).astype(np.int32)
+    else:
+        cum = rng.integers(-300, 4000, B).astype(np.int32)
+        maxv = (cum + rng.integers(0, 800, B)).astype(np.int32)
+        maxv[20:26] = cum[20:26] + 915     # past the drop on entry
+        maxv[:3] = cum[:3] + 2000          # also where nothing is in bounds
+    st = dict(done=rng.random(B) < 0.25, cum=cum, maxv=maxv,
+              maxp=rng.integers(0, tile + 1, B).astype(np.int32),
+              counts=rng.integers(0, 40, (B, 4)).astype(np.int32),
+              cdel=rng.integers(0, 40, (B, 4)).astype(np.int32))
+    st["done"][:40] = False
+    return {k: torch.from_numpy(v) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("kind", ["default", "ties", "wrap"])
+@pytest.mark.parametrize("W", [512, 80])
+def test_first_scan_edges(dev, W, kind, with_counts):
+    """K1 with the in-bounds length of either half at every edge, B not a
+    multiple of the rows a block holds, ties and sums that wrap."""
+    rng = np.random.default_rng([1, W, len(kind), with_counts])
+    B, n = 203, 50_000
+    r2, q2, sub = _edge_windows(rng, B, 2 * W, kind)
+    # right edges on rows 0.., left edges on rows 100..
+    loc_r, loc_q = _edge_anchors(rng, B, W, n, 0, False)
+    ll_r, ll_q = _edge_anchors(rng, B, W, n, 0, True)
+    loc_r[100:120], loc_q[100:120] = ll_r[:20], ll_q[:20]
+    xdrop = 3 if kind == "ties" else 910
+    args = [torch.from_numpy(a) for a in (
+        r2, q2, loc_r, loc_q, rng.random(B) > 0.1, sub)]
+    args[4][:120] = True
+    want = first_scan_plain(*args, xdrop, n, n, W=W, with_counts=with_counts)
+    got = first_scan(*(a.to(dev) for a in args), xdrop, n, n, W=W,
+                     with_counts=with_counts)
+    for w, g in zip(want, got):
+        _same(w, g)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("left", [False, True])
+@pytest.mark.parametrize("kind", ["default", "ties", "wrap"])
+@pytest.mark.parametrize("W", [2048, 592])
+@pytest.mark.parametrize("name", ["window_scan", "window_scan_wide"])
+def test_carried_scan_edges(dev, name, W, kind, left, with_counts):
+    """K4 and K5 from carried states (some done, some already past the
+    drop) with the in-bounds length at every edge."""
+    fn, plain = ((window_scan, window_scan_plain) if name == "window_scan"
+                 else (window_scan_wide, window_scan_wide_plain))
+    rng = np.random.default_rng([2, len(name), W, len(kind), left,
+                                 with_counts])
+    B, n, tile = 203, 50_000, 2 * W
+    r, q, sub = _edge_windows(rng, B, W, kind)
+    loc_r, loc_q = _edge_anchors(rng, B, W, n, tile, left)
+    st = _edge_state(rng, B, tile, kind)
+    xdrop = 3 if kind == "ties" else 910
+    args = [torch.from_numpy(a) for a in (r, q, loc_r, loc_q)]
+    sub = torch.from_numpy(sub)
+    want = plain(*args, st, sub, xdrop, tile, n, n, W=W, left=left,
+                 with_counts=with_counts)
+    got = fn(*(a.to(dev) for a in args),
+             {k: v.to(dev) for k, v in st.items()}, sub.to(dev), xdrop, tile,
+             n, n, W=W, left=left, with_counts=with_counts)
+    _same(want, got)
+    assert (want["done"] & ~st["done"]).any()
+
+
+@pytest.mark.parametrize("name", ["first_scan", "window_scan",
+                                  "window_scan_wide"])
+@pytest.mark.parametrize("B", [0, 1, 7, 9])
+def test_scan_tiny_batches_and_all_done(dev, name, B):
+    """No rows, fewer rows than a block holds, and every row done."""
+    rng = np.random.default_rng([3, len(name), B])
+    W, n, tile = 512, 50_000, 1024
+    sub = torch.from_numpy(SUB)
+    lr = torch.from_numpy(rng.integers(3000, n - 3000, B).astype(np.int32))
+    lq = torch.from_numpy(rng.integers(3000, n - 3000, B).astype(np.int32))
+    if name == "first_scan":
+        r2 = torch.from_numpy(rng.integers(0, 4, (B, 2 * W)).astype(np.uint8))
+        for valid in (torch.ones(B, dtype=torch.bool),
+                      torch.zeros(B, dtype=torch.bool)):
+            args = (r2, r2.clone(), lr, lq, valid, sub)
+            want = first_scan_plain(*args, 910, n, n, W=W, with_counts=True)
+            got = first_scan(*(a.to(dev) for a in args), 910, n, n, W=W,
+                             with_counts=True)
+            for w, g in zip(want, got):
+                _same(w, g)
+        return
+    fn, plain = ((window_scan, window_scan_plain) if name == "window_scan"
+                 else (window_scan_wide, window_scan_wide_plain))
+    r = torch.from_numpy(rng.integers(0, 4, (B, W)).astype(np.uint8))
+    for all_done in (False, True):
+        st = _edge_state(rng, 64, tile, "default")
+        st = {k: v[:B].clone() for k, v in st.items()}
+        st["done"][:] = all_done
+        for left in (False, True):
+            want = plain(r, r.clone(), lr, lq, st, sub, 910, tile, n, n, W=W,
+                         left=left, with_counts=True)
+            got = fn(r.to(dev), r.clone().to(dev), lr.to(dev), lq.to(dev),
+                     {k: v.to(dev) for k, v in st.items()}, sub.to(dev), 910,
+                     tile, n, n, W=W, left=left, with_counts=True)
+            _same(want, got)
+
+
+@pytest.mark.parametrize("name", ["first_scan", "window_scan",
+                                  "window_scan_wide"])
+def test_scan_full_batch(dev, name):
+    """B = 2^17 rows (W = 512 for K1, 2048 for K4 and K5): the grid and the
+    64-bit row offsets. Inputs are made on the card; the plain version
+    runs there too."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, n = 1 << 17, 4_000_000
+    W = 512 if name == "first_scan" else 2048
+    width = 2 * W if name == "first_scan" else W
+    r = torch.randint(0, 4, (B, width), generator=g, device=dev,
+                      dtype=torch.uint8)
+    q = torch.where(torch.rand((B, width), generator=g, device=dev)
+                    < torch.rand((B, 1), generator=g, device=dev) * 0.4,
+                    torch.randint(0, 8, (B, width), generator=g, device=dev,
+                                  dtype=torch.uint8), r)
+    lr = torch.randint(0, n, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    lq = torch.randint(0, n, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    sub = torch.from_numpy(SUB).to(dev)
+    if name == "first_scan":
+        valid = torch.rand(B, generator=g, device=dev) > 0.01
+        want = first_scan_plain(r, q, lr, lq, valid, sub, 910, n, n, W=W,
+                                with_counts=True)
+        got = first_scan(r, q, lr, lq, valid, sub, 910, n, n, W=W,
+                         with_counts=True)
+        for w, gg in zip(want, got):
+            _same(w, gg)
+        return
+    fn, plain = ((window_scan, window_scan_plain) if name == "window_scan"
+                 else (window_scan_wide, window_scan_wide_plain))
+    cum = torch.randint(-300, 4000, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    st = dict(done=torch.rand(B, generator=g, device=dev) < 0.3, cum=cum,
+              maxv=cum + torch.randint(0, 800, (B,), generator=g, device=dev,
+                                       dtype=torch.int32),
+              maxp=torch.randint(0, W, (B,), generator=g, device=dev,
+                                 dtype=torch.int32),
+              counts=torch.randint(0, 40, (B, 4), generator=g, device=dev,
+                                   dtype=torch.int32),
+              cdel=torch.randint(0, 40, (B, 4), generator=g, device=dev,
+                                 dtype=torch.int32))
+    for left in (False, True):
+        want = plain(r, q, lr, lq, st, sub, 910, W, n, n, W=W, left=left,
+                     with_counts=True)
+        got = fn(r, q, lr, lq, st, sub, 910, W, n, n, W=W, left=left,
+                 with_counts=True)
+        _same(want, got)
+        del want, got
+
+
+def test_every_launcher_counts_1000_launches(dev):
+    """Each of the ten launchers called 1000 times through its wrapper:
+    the count rises by 1000 and no launch is refused."""
+    from segalign_tpu_torch.ops import gather_variants as gv
+    from segalign_tpu_torch.ops.extend3 import init_state
+    from segalign_tpu_torch.ops.probe import scale2
+    rng = np.random.default_rng(11)
+    B, W, n = 64, 512, 100_000
+    seq = torch.from_numpy(rng.integers(0, 4, n + 4096).astype(np.uint8)
+                           ).to(dev)
+    starts = torch.from_numpy(rng.integers(0, n, B).astype(np.int32)).to(dev)
+    loc = torch.from_numpy(rng.integers(W, n - W, B).astype(np.int32)).to(dev)
+    sub = torch.from_numpy(SUB).to(dev)
+    r2 = gather_rows(seq, loc - W, 2 * W)
+    r = r2[:, W:].contiguous()
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    st = init_state(B, -1, valid, dev)
+    x = torch.ones(64, device=dev)
+    kw = dict(W=W, left=False, with_counts=False)
+    calls = [
+        (gather_rows, lambda: gather_rows(seq, starts, W)),
+        (gather_rows_tile, lambda: gather_rows_tile(seq, starts, W, 512)),
+        (first_scan, lambda: first_scan(r2, r2, loc, loc, valid, sub, 910, n,
+                                        n, W=W, with_counts=False)),
+        (window_scan, lambda: window_scan(r, r, loc, loc, st, sub, 910, 0, n,
+                                          n, **kw)),
+        (window_scan_wide, lambda: window_scan_wide(r, r, loc, loc, st, sub,
+                                                    910, 0, n, n, **kw)),
+        (gv.gather_dma_only, lambda: gv.gather_dma_only(seq, starts, W)),
+        (gv.gather_extract_only,
+         lambda: gv.gather_extract_only(seq, starts, W)),
+        (gv.gather_dbuf, lambda: gv.gather_dbuf(seq, starts, W)),
+        (gv.gather_two_sided, lambda: gv.gather_two_sided(
+            seq, seq, torch.cat([starts, starts]), W)),
+        (scale2, lambda: scale2(x)),
+    ]
+    for wrapper, call in calls:
+        before = wrapper.launches
+        for _ in range(1000):
+            call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1000, wrapper.__name__
+
+
+def test_stream_of_is_the_current_stream(dev):
+    """_build.stream_of reads the handle through a private torch function:
+    it must give what the public API gives, on the default stream, under a
+    stream of the caller's, and back on the default one after it."""
+    from segalign_tpu_torch import _build
+
+    def public():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    assert _build.stream_of(dev) == public()
+    assert _build.stream_of(torch.device("cuda")) == public()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _build.stream_of(dev) == public() == side.cuda_stream
+        x = torch.arange(1 << 16, dtype=torch.float32, device=dev)
+        from segalign_tpu_torch.ops.probe import scale2
+        y = scale2(x)
+    side.synchronize()
+    assert torch.equal(y, x * 2)
+    assert _build.stream_of(dev) == public() != side.cuda_stream

@@ -1,5 +1,6 @@
-"""The port imports without jax, names no jax anywhere, and runs its plain
-versions, never a kernel, on CPU tensors."""
+"""The port stands alone: it imports with jax, the JAX package and the
+root bench script blocked, names none of them in any import (chip_smoke.py
+included), and runs its plain versions, never a kernel, on CPU tensors."""
 
 import ast
 import os
@@ -27,10 +28,12 @@ def test_every_module_imports_with_jax_blocked():
     names = _modules()
     assert "segalign_tpu_torch.cli.run_segalign" in names
     code = ("import sys, importlib\n"
-            "sys.modules['jax'] = None\n"
+            "for blocked in ('jax', 'segalign_tpu', 'bench'):\n"
+            "    sys.modules[blocked] = None\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
-            "assert sys.modules['jax'] is None\n"
+            "for blocked in ('jax', 'segalign_tpu', 'bench'):\n"
+            "    assert sys.modules[blocked] is None\n"
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -39,23 +42,41 @@ def test_every_module_imports_with_jax_blocked():
     assert r.stdout.startswith("ok")
 
 
-def test_no_jax_import_in_package():
+def _imported_top_levels(path):
+    """(top-level module, line) of every absolute import in a source."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            yield m.split(".")[0], node.lineno
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(dirpath, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom):
-                    mods = [node.module or ""]
-                else:
-                    continue
-                for m in mods:
-                    assert m.split(".")[0] != "jax", (path, node.lineno)
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    return paths
+
+
+def test_no_jax_import_in_package():
+    for path in _port_sources():
+        for top, line in _imported_top_levels(path):
+            assert top != "jax", (path, line)
+
+
+def test_no_import_of_the_jax_package_or_bench():
+    paths = _port_sources()
+    assert len(paths) > 40
+    for path in paths:
+        for top, line in _imported_top_levels(path):
+            assert top not in ("segalign_tpu", "bench"), (path, line)
 
 
 def test_cpu_tensors_launch_no_kernel():
