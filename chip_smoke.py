@@ -20,6 +20,12 @@ last line, and without CUDA the script fails at once:
      PyTorch call computes the same function, that call's time
      (library_ms: an advanced index for the gathers, x * 2 for scale2;
      the port never calls it);
+     K3 (gather_rows_tile) also on starts that do not cluster (every row
+     reads directly), and, checked only, on tiles whose span is exactly
+     T x 128 bytes, one byte under and one over, on starts the clamp
+     moves, on a view one byte off a 16-byte boundary and at W = 2048; S1
+     also, checked only, on starts at offsets 0, 1, 15, 16 and 1023 of a
+     1024-byte slice and at both ends of the range it admits;
      K5 (window_scan_wide) at the device route's first window (2^17 rows,
      tile 0, fresh state) and at a continuation (16384 rows, tile 2048,
      half alive); S1 (gather_dma_only, gather_extract_only, gather_dbuf)
@@ -173,7 +179,7 @@ def _ms(fn, reps: int) -> float:
 def _graph_ms(fn, reps: int) -> float:
     """Device time of one call: `reps` calls recorded once into a CUDA graph
     and replayed, so that the host's time for a call (a wrapper's checks and
-    allocations) does not bound the reading."""
+    allocations) does not bound the reading. The median of five replays."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -183,13 +189,16 @@ def _graph_ms(fn, reps: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[2]
 
 
 def _time_pair(kernel, plain, reps):
@@ -238,6 +247,15 @@ class Kernels:
     def __init__(self):
         self.rows = {}
 
+    def verify(self, name, label, err):
+        """Fail unless err is 0; an edge that is checked and not timed."""
+        if err != 0:
+            fail(f"{name} {label} disagrees with its plain version "
+                 f"(max_abs_err {err})")
+        print(f"  {name} {label}: max_abs_err={err}", flush=True)
+        row = self.rows.setdefault(name, dict(max_abs_err=0))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
     def check(self, name, label, err, kernel, plain, reps, nbytes, ops=0.0,
               library=None):
         """Fail unless err is 0; time the kernel beside its plain version
@@ -246,22 +264,19 @@ class Kernels:
         alone and, where one PyTorch call computes the same function, that
         call (kernel_ms and library_ms: replayed from a CUDA graph); the
         first check of a kernel (its main-path shape) gives its row."""
-        if err != 0:
-            fail(f"{name} {label} disagrees with its plain version "
-                 f"(max_abs_err {err})")
+        self.verify(name, label, err)
         wrapper_ms, plain_ms = _time_pair(kernel, plain, reps)
         ms = _graph_ms(kernel, reps)
         library_ms = None if library is None else _graph_ms(library, reps)
         bms, by = bound_ms(nbytes, ops)
-        print(f"  {name} {label}: max_abs_err={err} kernel_ms {ms:.4f}, "
+        print(f"  {name} {label}: kernel_ms {ms:.4f}, "
               f"wrapper_ms {wrapper_ms:.4f}, "
               f"plain_ms {plain_ms:.4f}, bound_ms {bms:.4f} ({by}: "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f}e9 operations), "
               f"library_ms "
               + ("none" if library_ms is None else f"{library_ms:.4f}"),
               flush=True)
-        row = self.rows.setdefault(name, dict(max_abs_err=0))
-        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row = self.rows[name]
         if "ms" not in row:
             row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=library_ms)
@@ -392,9 +407,13 @@ def main():
     clustered = torch.from_numpy(
         (np.repeat(blocks, 128) + rng.integers(0, 60_000, B)
          ).astype(np.int32)).to(dev)
+    scattered = torch.from_numpy(rng.integers(
+        0, q_w.numel() - 2 * W, B).astype(np.int32)).to(dev)
     for T, s, label in ((64, q_start, "query-sorted starts T=64"),
-                        (512, clustered, "clustered starts T=512")):
-        seq = q_w if T == 64 else ref_w
+                        (512, clustered, "clustered starts T=512"),
+                        (64, scattered, "starts that do not cluster T=64 "
+                         "(every row direct)")):
+        seq = ref_w if T == 512 else q_w
         got = gather_rows_tile(seq, s, 2 * W, T)
         err = _err(got, gather_rows_plain(seq, s, 2 * W))
         K.check("gather_rows_tile", f"B={B} W={2 * W} {label}", err,
@@ -402,6 +421,33 @@ def main():
                 lambda: gather_rows_plain(seq, s, 2 * W), 20,
                 gather_bytes(seq, B, 2 * W),
                 library=lambda: index_gather(seq, s, 2 * W))
+
+    def tile_edge(seq, s, width, T, label):
+        s = torch.as_tensor(np.asarray(s, np.int64).astype(np.int32)).to(dev)
+        K.verify("gather_rows_tile", f"B={s.numel()} W={width} T={T} {label}",
+                 _err(gather_rows_tile(seq, s, width, T),
+                      gather_rows_plain(seq, s, width)))
+
+    n_pad = q_w.numel()
+    for T in (64, 512):
+        for delta in (-1, 0, 1):
+            for lo in (1 << 20, (1 << 20) + 5):
+                # 64 tiles whose span is T x 128 + delta bytes from lo
+                hi = lo + T * 128 - 2 * W + delta
+                tile = rng.integers(lo, hi + 1, 128)
+                tile[[3, 77]] = [hi, lo]
+                tile_edge(q_w, np.concatenate(
+                    [tile + 4099 * k for k in range(64)]), 2 * W, T,
+                    f"span T x 128 {delta:+d} from {lo}")
+    tile_edge(q_w, np.concatenate([
+        rng.integers(-5000, 0, 4000), rng.integers(n_pad - 2 * W, n_pad + 5000,
+                                                   4000),
+        [-2**31, 2**31 - 1, 0, n_pad - 2 * W]]), 2 * W, 64,
+        "starts below 0 and above L - W")
+    for T, s in ((64, q_start), (512, clustered)):
+        tile_edge(q_w[1:], s.cpu().numpy()[:1 << 14], 2 * W, T,
+                  "a view one byte off alignment")
+        tile_edge(q_w, s.cpu().numpy()[:1 << 14], Wc, T, "")
 
     r2 = gather_rows(ref_w, r_start, 2 * W)
     q2 = gather_rows(q_w, q_start, 2 * W)
@@ -517,6 +563,17 @@ def main():
                     (Bv, Wv), dtype=torch.uint8, device=dev))
                 if name == "gather_extract_only"
                 else lambda: index_gather(seq_r, st, Wv))
+        # starts at every offset kind of a 1024-byte slice, and at both
+        # ends of the range the wrapper admits
+        hi_v = seq_r.numel() - gv.awin_for(Wv)
+        edge = torch.tensor(
+            [0, hi_v] + [k * 1024 + o for k in (0, 3, 700)
+                         for o in (0, 1, 15, 16, 1023)]
+            + [hi_v - 1, hi_v - 15, hi_v - 16] * 50, dtype=torch.int32,
+            device=dev)
+        K.verify(name, f"B={edge.numel()} W={Wv} offsets 0, 1, 15, 16, 1023 "
+                 f"of a slice, both ends of [0, {hi_v}]",
+                 _err(fn(seq_r, edge, Wv), plain(seq_r, edge, Wv)))
     # both sides as one index call: the sequences end to end
     seq_both = torch.cat([seq_r, seq_q])
     idx_both = st2.long()
@@ -546,8 +603,14 @@ def main():
                     gather_rows_tile=gather_rows_tile,
                     first_scan=first_scan, window_scan=window_scan,
                     window_scan_wide=window_scan_wide)
-    for w in wrappers.values():
-        w.launches = 0
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+        gather_rows_tile.launches_by_T = {}
+
+    by_T = {}   # K3's launches of each slice, split by T
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -556,6 +619,7 @@ def main():
     dt = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     by_slice = {"native_pair": dict(launches)}
+    by_T["native_pair"] = dict(gather_rows_tile.launches_by_T)
     n_hsps = sum(len(r.hsps) for r in results)
     n_hits = sum(r.num_hits for r in results)
     for r in results:
@@ -570,7 +634,8 @@ def main():
           f"wall {dt:.3f} s, {len(query) / 1e6 / dt:.3f} Mbp/s, "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
-          f"launches {launches} [{card}]", flush=True)
+          f"launches {launches}, gather_rows_tile by T "
+          f"{by_T['native_pair']} [{card}]", flush=True)
     if n_hsps != EXPECTED_HSPS:
         fail(f"{n_hsps} HSPs, expected {EXPECTED_HSPS}")
     for k in ("gather_rows", "gather_rows_tile", "first_scan",
@@ -589,8 +654,7 @@ def main():
           f"{time.time() - t0:.1f} s", flush=True)
     del al
     torch.cuda.empty_cache()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -599,6 +663,7 @@ def main():
     dt_d = time.time() - t0
     launches_d = {k: w.launches for k, w in wrappers.items()}
     by_slice["device_pair"] = launches_d
+    by_T["device_pair"] = dict(gather_rows_tile.launches_by_T)
     n_d = sum(len(r.hsps) for r in results_d)
     print(f"device route: {n_d} HSPs, wall {dt_d:.3f} s, "
           f"{len(query) / 1e6 / dt_d:.3f} Mbp/s, max_memory_allocated "
@@ -684,8 +749,7 @@ def main():
         out_dir = os.path.join(d, f"rm_{route}")
         shutil.rmtree(out_dir, ignore_errors=True)
         os.makedirs(out_dir)
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
@@ -701,13 +765,14 @@ def main():
         got[route] = files
         by_slice[f"rm_{route}"] = {k: w.launches
                                    for k, w in wrappers.items()}
+        by_T[f"rm_{route}"] = dict(gather_rows_tile.launches_by_T)
         n_iv = sum(v.count(b"\n") for v in files.values())
         print(f"rm {route} route: {len(genome) / 1e6:.1f} Mbp, {n_iv} "
               f"intervals, {st.num_seed_hits} hits, {st.num_hsps} HSPs, "
               f"wall {dt_rm:.3f} s, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
-              f"launches {by_slice[f'rm_{route}']}"
-              f" [{card}]", flush=True)
+              f"launches {by_slice[f'rm_{route}']}, gather_rows_tile by T "
+              f"{by_T[f'rm_{route}']} [{card}]", flush=True)
         if n_iv == 0:
             fail(f"rm {route} route wrote no intervals")
     if got["native"] != got["device"]:
@@ -720,7 +785,8 @@ def main():
         gather_extract_only=gv.gather_extract_only,
         gather_dbuf=gv.gather_dbuf, gather_two_sided=gv.gather_two_sided,
         scale2=scale2)
-    for w in (*wrappers.values(), *script_kernels.values()):
+    reset_counts()
+    for w in script_kernels.values():
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
@@ -776,6 +842,11 @@ def main():
                          launches_by_slice={
                              k: v[name] for k, v in by_slice.items()
                              if name in v}))
+        if name == "gather_rows_tile":
+            # {slice: {T: launches}}: which stage size the paths ask for
+            rows[-1]["launches_by_T"] = {
+                k: {str(T): n for T, n in sorted(v.items())}
+                for k, v in by_T.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

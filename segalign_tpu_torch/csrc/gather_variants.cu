@@ -2,40 +2,50 @@
 //
 // S1 replaces scripts/exp_gather_variants.py _mk (_v1_kernel, _v2_kernel,
 // _v3_kernel), S2 replaces _mk4 (_v4_kernel). The experiment splits the
-// TPU's per-row gather (K2) into its pieces: copy each row's 1024-aligned
-// AW = max(2048, W + 1024) byte superset into fast memory, then rotate the
-// window out of it at the row's offset starts[i] % 1024. The three S1 modes
-// are one kernel template:
+// TPU's per-row gather (K2) into its pieces: copy each row's bytes into
+// fast memory, then cut the window out of them at the row's byte offset.
+// The three S1 modes are one kernel template, and every mode goes through
+// shared memory (the experiment holds staging against K2's and S2's direct
+// loads):
 //
-//   load only        out[i, k] = seq[(starts[i] / 1024) * 1024 + k]: the
-//                    supersets are staged and the first W bytes written
-//                    unrotated;
+//   load only        out[i, k] = seq[(starts[i] / 1024) * 1024 + k]: the W
+//                    bytes at the row's 1024-aligned address are staged and
+//                    written as they lie;
 //   extract only     no sequence byte is read: the block zero-fills its
-//                    bank once and rotate-extracts every row from it, so
-//                    the output is zeros (the Pallas interpreter's value
-//                    of the TPU kernel's never-written scratch);
+//                    bank once and cuts every row from it at the row's
+//                    offset, so the output is zeros (the Pallas
+//                    interpreter's value of the TPU kernel's never-written
+//                    scratch);
 //   double-buffered  out[i, k] = seq[starts[i] + k], K2's function: a block
 //                    walks its share of the row blocks with two banks and
-//                    issues block t+1's copies before it extracts block t.
+//                    issues block t+1's copies before it cuts block t.
 //
-// Starts are not clamped: the caller keeps them in [0, L - AW], as the JAX
-// variants require, so every superset lies inside the sequence.
+// Starts are not clamped: the caller keeps them in [0, L - AW] with AW =
+// max(2048, W + 1024), the TPU kernels' aligned superset, as the JAX
+// variants require. Nothing here stages that superset: a row's staged bytes
+// are the 16-byte aligned cover of its window, W + 16 bytes from
+// starts[i] & ~15 (W bytes in load only), which the caller's range keeps
+// inside the sequence.
 //
 // Bound on the H100: bytes. Each mode's function writes B x W bytes and reads
 // 4 bytes a start and, but for extract only, the sequence once: at the
 // experiment's shape (B = 2^17, W = 512, a 1 MB sequence) 68.6 MB, 0.020 ms
-// at 3.35 TB/s, twice that for S2's two sides (137.3 MB, 0.041 ms). What the
-// kernels move is more: the supersets read AW bytes a row (4x W at W = 512)
-// where K2 reads W; the experiment's sequences are about 1 MB and sit in L2,
-// so the loads are L2 traffic. Staging uses 16-byte cp.async copies into
-// banks of ROWS x AW bytes of dynamic shared memory: 64 KB a block at W = 512
-// in every mode (one bank of 32 rows, or two of 16 when double-buffered),
-// where the TPU's 256 rows a block would need 512 KB. The extraction reads
-// two aligned 32-bit words of the bank and funnel-shifts them to the row's
-// byte offset, so a warp reads and writes 128 bytes a row in aligned words.
-// The grid is the blocks the card holds at once; each block loops over row
-// blocks, which amortises the extract-only zero fill and gives the double
-// buffer a next block to prefetch.
+// at 3.35 TB/s, twice that for S2's two sides (137.3 MB, 0.041 ms). What S1
+// moves beside that: W + 16 bytes a row from L2 (the experiment's sequences
+// are about 1 MB and sit there) through shared memory. Staging is 16-byte
+// cp.async copies, a warp a row, into banks of ROWS rows of W + 16 bytes:
+// 8 KB a block at W = 512 in every mode (one bank of 16 rows, or two of 8
+// when double-buffered). The cut reads two aligned 16-byte shared words a
+// thread and funnel-shifts them to the row's offset (cut16), which a warp
+// learns once a row, and stores one uint4 (a streaming store); the zero
+// fill is uint4 stores. A block walks a few row blocks (kWalk: 4 when
+// double-buffered, so that the double buffer has a next block to prefetch,
+// else 2, which halves extract only's zero fill), and the grid is as many
+// blocks as that takes. A grid of only the blocks the card holds at once,
+// each walking its share of everything, was slower in every mode on an
+// H100 (extract only by 13%): the writes are the bound, and many short
+// blocks keep every SM writing to the end. So the launcher looks nothing
+// up and keeps nothing.
 //
 // S2 gathers both sides of a row index in one block with direct loads
 // (no staging): each thread reads the aligned 32-bit word of its four bytes
@@ -44,77 +54,95 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gather_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kTwoRows = 8;    // S2 rows per block, each side
 constexpr int kAlign = 1024;   // the TPU's HBM slice alignment
-constexpr int kMaxW = 2048;    // 96 KB a block at AW = 3072
+constexpr int kMaxW = 2048;    // 32 KB of banks a block
+constexpr int kRowPad = 16;    // a row's aligned cover is W + 16 bytes
 
 enum Mode : int { kLoadOnly = 0, kExtractOnly = 1, kDoubleBuffered = 2 };
 
-// S1 rows per shared bank: 64 KB a block in every mode at W = 512, so that
-// the modes run at the same occupancy (three blocks an SM)
+// S1 rows per shared bank: the same shared memory a block in every mode
+// (8 KB at W = 512), so that the modes run at the same occupancy
 template <int MODE>
-constexpr int kRows = MODE == kDoubleBuffered ? 16 : 32;
+constexpr int kRows = MODE == kDoubleBuffered ? 8 : 16;
 
-__host__ __device__ constexpr int awin_for(int W) {
-  return W + kAlign > 2048 ? W + kAlign : 2048;
-}
+// Row blocks a block walks: the double buffer needs a next block to
+// prefetch, extract only spreads its zero fill over them. More blocks than
+// the card holds at once, each with little to walk, keep the SMs evenly
+// busy to the end; a grid of resident blocks that walk everything does not.
+template <int MODE>
+constexpr int kWalk = MODE == kDoubleBuffered ? 4 : 2;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start the copies of the supersets of rows [row0, row0 + ROWS) into bank
-// and commit them as one group.
+// A warp takes rows warp, warp + kWarps, ... of a row block. Its rows'
+// starts (0 past the last row); every lane reads the same words.
 template <int ROWS>
-__device__ __forceinline__ void issue_block(const uint8_t* __restrict__ seq,
-                                            const int32_t* __restrict__ starts,
-                                            int B, int AW, int row0,
-                                            uint8_t* bank) {
-  const int chunks = AW / 16;
-  const int nrows = B - row0 < ROWS ? B - row0 : ROWS;
-  for (int i = threadIdx.x; i < nrows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = i - r * chunks;
-    const int64_t aligned =
-        static_cast<int64_t>(__ldg(starts + row0 + r) / kAlign) * kAlign;
-    cp_async16(bank + r * AW + 16 * c, seq + aligned + 16 * c);
+struct WarpStarts {
+  int32_t s[ROWS / kWarps];
+};
+
+template <int ROWS>
+__device__ __forceinline__ WarpStarts<ROWS> warp_starts(
+    const int32_t* __restrict__ starts, int B, int row0) {
+  WarpStarts<ROWS> w;
+#pragma unroll
+  for (int k = 0; k < ROWS / kWarps; ++k) {
+    const int row = row0 + (threadIdx.x >> 5) + kWarps * k;
+    w.s[k] = row < B ? __ldg(starts + row) : 0;
   }
-  cp_async_commit();
+  return w;
+}
+
+// Start the copies of rows [row0, row0 + ROWS) into bank and commit them as
+// one group: W bytes from the row's 1024-aligned address, or with COVER the
+// W + 16 bytes of the aligned cover of its window.
+template <int ROWS, bool COVER>
+__device__ __forceinline__ void issue_block(const uint8_t* __restrict__ seq,
+                                            const WarpStarts<ROWS>& mine,
+                                            int B, int W, int row0,
+                                            uint8_t* bank) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = W / 16 + (COVER ? 1 : 0);
+#pragma unroll
+  for (int k = 0; k < ROWS / kWarps; ++k) {
+    const int r = warp + kWarps * k;
+    if (row0 + r >= B) break;
+    const int32_t s = mine.s[k];
+    const uint8_t* src =
+        seq + (COVER ? static_cast<int64_t>(s & ~15)
+                     : static_cast<int64_t>(s / kAlign) * kAlign);
+    uint8_t* dst = bank + r * (W + kRowPad);
+    for (int c = lane; c < chunks; c += 32)
+      sa::cp_async16(dst + 16 * c, src + 16 * c);
+  }
+  sa::cp_async_commit();
 }
 
 // Write rows [row0, row0 + ROWS) from bank: each row's first W bytes, or
-// with ROTATE its W bytes from offset starts[i] % 1024.
+// with ROTATE its W bytes from offset starts[i] % 16.
 template <int ROWS, bool ROTATE>
-__device__ __forceinline__ void extract_block(
-    const uint8_t* bank, const int32_t* __restrict__ starts, int B, int W,
-    int AW, int row0, uint32_t* __restrict__ out) {
-  const int words = W / 4;
-  const int nrows = B - row0 < ROWS ? B - row0 : ROWS;
-  for (int i = threadIdx.x; i < nrows * words; i += blockDim.x) {
-    const int r = i / words, w = i - r * words;
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(bank + r * AW);
-    uint32_t v;
-    if (ROTATE) {
-      // off + W + 3 < 1024 + W <= AW: both words lie in the row's superset
-      const int off = __ldg(starts + row0 + r) % kAlign + 4 * w;
-      v = __funnelshift_r(row[off >> 2], row[(off >> 2) + 1], 8 * (off & 3));
-    } else {
-      v = row[w];
-    }
-    out[static_cast<size_t>(row0 + r) * words + w] = v;
+__device__ __forceinline__ void extract_block(const uint8_t* bank,
+                                              const WarpStarts<ROWS>& mine,
+                                              int B, int W, int row0,
+                                              uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < ROWS / kWarps; ++k) {
+    const int r = warp + kWarps * k;
+    if (row0 + r >= B) break;
+    const int off = mine.s[k] & 15;
+    const uint4* src =
+        reinterpret_cast<const uint4*>(bank + r * (W + kRowPad));
+    uint4* o = reinterpret_cast<uint4*>(
+        out + static_cast<size_t>(row0 + r) * W);
+    for (int u = lane; u < W / 16; u += 32)
+      sa::store16(o + u,
+                  ROTATE ? sa::cut16(src[u], src[u + 1], off) : src[u]);
   }
 }
 
@@ -122,43 +150,50 @@ template <int MODE>
 __global__ void __launch_bounds__(kThreads)
     gather_variant_kernel(const uint8_t* __restrict__ seq,
                           const int32_t* __restrict__ starts, int B, int W,
-                          uint32_t* __restrict__ out) {
+                          uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int ROWS = kRows<MODE>;
-  const int AW = awin_for(W);
-  const int bank_bytes = ROWS * AW;
+  const int bank_bytes = ROWS * (W + kRowPad);
   const int nblk = (B + ROWS - 1) / ROWS;
+  int t = blockIdx.x;   // the grid has no more blocks than row blocks
+  // a row block's starts are read one step before they are used
+  WarpStarts<ROWS> mine = warp_starts<ROWS>(starts, B, t * ROWS);
   if (MODE == kExtractOnly) {
     uint4* p = reinterpret_cast<uint4*>(smem);
     for (int i = threadIdx.x; i < bank_bytes / 16; i += blockDim.x)
       p[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
-    for (int t = blockIdx.x; t < nblk; t += gridDim.x)
-      extract_block<ROWS, true>(smem, starts, B, W, AW, t * ROWS, out);
+    for (; t < nblk; t += gridDim.x) {
+      const WarpStarts<ROWS> ahead =
+          warp_starts<ROWS>(starts, B, (t + gridDim.x) * ROWS);
+      extract_block<ROWS, true>(smem, mine, B, W, t * ROWS, out);
+      mine = ahead;
+    }
   } else if (MODE == kLoadOnly) {
-    for (int t = blockIdx.x; t < nblk; t += gridDim.x) {
-      issue_block<ROWS>(seq, starts, B, AW, t * ROWS, smem);
-      cp_async_wait<0>();
+    for (; t < nblk; t += gridDim.x) {
+      issue_block<ROWS, false>(seq, mine, B, W, t * ROWS, smem);
+      mine = warp_starts<ROWS>(starts, B, (t + gridDim.x) * ROWS);
+      sa::cp_async_wait<0>();
       __syncthreads();
-      extract_block<ROWS, false>(smem, starts, B, W, AW, t * ROWS, out);
+      extract_block<ROWS, false>(smem, mine, B, W, t * ROWS, out);
       __syncthreads();  // the bank is refilled next
     }
   } else {
-    int t = blockIdx.x;
-    if (t < nblk) issue_block<ROWS>(seq, starts, B, AW, t * ROWS, smem);
+    issue_block<ROWS, true>(seq, mine, B, W, t * ROWS, smem);
     for (int j = 0; t < nblk; t += gridDim.x, ++j) {
       const int next = t + gridDim.x;
-      // the other bank was last read before the previous __syncthreads
-      if (next < nblk)
-        issue_block<ROWS>(seq, starts, B, AW, next * ROWS,
-                          smem + ((j + 1) & 1) * bank_bytes);
-      else
-        cp_async_commit();
-      cp_async_wait<1>();  // block t's group; block t+1's may be in flight
+      const WarpStarts<ROWS> ahead =
+          warp_starts<ROWS>(starts, B, next * ROWS);
+      // the other bank was last read before the previous __syncthreads;
+      // past the last row block the group is empty
+      issue_block<ROWS, true>(seq, ahead, B, W, next * ROWS,
+                              smem + ((j + 1) & 1) * bank_bytes);
+      sa::cp_async_wait<1>();  // block t's group; block t+1's may be in flight
       __syncthreads();
-      extract_block<ROWS, true>(smem + (j & 1) * bank_bytes, starts, B, W,
-                                AW, t * ROWS, out);
+      extract_block<ROWS, true>(smem + (j & 1) * bank_bytes, mine, B, W,
+                                t * ROWS, out);
       __syncthreads();
+      mine = ahead;
     }
   }
 }
@@ -168,29 +203,17 @@ cudaError_t launch_variant(const void* seq, const void* starts, int B, int W,
                            void* out, void* stream) {
   if (W <= 0 || W % 16 || W > kMaxW) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  // at most 33 KB at the widest W: under the 48 KB a block gets unasked,
+  // so no attribute is set and nothing of the device is looked up
   const int smem =
-      (MODE == kDoubleBuffered ? 2 : 1) * kRows<MODE> * awin_for(W);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_variant_kernel<MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gather_variant_kernel<MODE>, kThreads, smem)) !=
-      cudaSuccess)
-    return err;
+      (MODE == kDoubleBuffered ? 2 : 1) * kRows<MODE> * (W + kRowPad);
   const int nblk = (B + kRows<MODE> - 1) / kRows<MODE>;
-  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
   gather_variant_kernel<MODE>
-      <<<nblk < resident ? nblk : resident, kThreads, smem,
+      <<<(nblk + kWalk<MODE> - 1) / kWalk<MODE>, kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(seq),
           static_cast<const int32_t*>(starts), B, W,
-          static_cast<uint32_t*>(out));
+          static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }
 

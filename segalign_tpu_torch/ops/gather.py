@@ -8,7 +8,10 @@ buffer reads a harmless window instead of faulting.
 
 The TPU kernels' 1024-byte aligned supersets, roll extraction and 2^17-row
 scalar-memory cap do not exist here. Which rows take the tile gather is a
-speed choice only: gather_rows_tile returns the same bytes for any starts.
+speed choice only: gather_rows_tile returns the same bytes for any starts,
+any T and a sequence at any address (a view that starts off a 16-byte
+boundary included): a row that does not lie inside its tile's staged bytes
+reads global memory instead.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from .. import _build
 
 TILE_ROWS = 128  # rows that share one staged span in gather_rows_tile
+MAX_T = 1024     # a span is at most T x 128 bytes, T in (0, MAX_T]
 
 
 def _check(seq, starts, W):
@@ -70,18 +74,22 @@ gather_rows.launches = 0
 def gather_rows_tile(seq: torch.Tensor, starts: torch.Tensor, W: int,
                      T: int) -> torch.Tensor:
     """K3: the windows of each block of 128 starts cut from one staged span
-    of at most T x 128 bytes. Same output as gather_rows."""
+    of at most T x 128 bytes (the kernel stages no more than 96 KB a tile).
+    Same output as gather_rows."""
     _check(seq, starts, W)
-    if not 0 < T <= 1024:
-        raise ValueError(f"T={T} must be in (0, 1024]")
+    if not 0 < T <= MAX_T:
+        raise ValueError(f"T={T} must be in (0, {MAX_T}]")
     if seq.device.type == "cpu":
         return gather_rows_plain(seq, starts, W)
     out = _launch("sa_gather_rows_tile", seq, starts, W, T)
     gather_rows_tile.launches += 1
+    by_T = gather_rows_tile.launches_by_T
+    by_T[T] = by_T.get(T, 0) + 1
     return out
 
 
 gather_rows_tile.launches = 0
+gather_rows_tile.launches_by_T = {}   # the same count, split by T
 
 
 def tile_spans_ok(starts: np.ndarray, W: int, T: int) -> bool:

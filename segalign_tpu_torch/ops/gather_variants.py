@@ -2,8 +2,11 @@
 
 Counterparts of scripts/exp_gather_variants.py _mk (S1: _v1_kernel,
 _v2_kernel, _v3_kernel) and _mk4 (S2: _v4_kernel), which split the TPU's
-per-row gather (K2) into its pieces. Each row's 1024-aligned superset of
-awin_for(W) bytes is staged, then the window is cut from it:
+per-row gather (K2) into its pieces: a row's bytes are staged in shared
+memory, then the window is cut from them at the row's byte offset. The
+kernels stage the 16-byte aligned cover of a window (W + 16 bytes), not the
+TPU kernels' 1024-aligned superset of awin_for(W) bytes; the superset only
+defines the range of starts a caller may pass:
 
   gather_dma_only      out[i, k] = seq[(starts[i] // 1024) * 1024 + k]
   gather_extract_only  zeros: rotate-extraction from a bank never loaded
@@ -29,7 +32,7 @@ from .gather import gather_rows_plain
 
 ALIGN = 1024   # the TPU's HBM slice alignment, kept for the superset
 AWIN = 2048
-MAX_W = 2048   # 96 KB of shared memory a block at awin_for(W) = 3072
+MAX_W = 2048   # 129 KB of shared memory a block: 64 rows of W + 16 bytes
 
 
 def awin_for(W: int) -> int:
@@ -104,13 +107,13 @@ def _s1(name, launcher, plain, doc):
 
 gather_dma_only = _s1(
     "gather_dma_only", "sa_gather_dma_only", gather_dma_only_plain,
-    "S1 load only (replaces _v1_kernel): stage the supersets, write them "
-    "unrotated.")
+    "S1 load only (replaces _v1_kernel): stage the W bytes at each row's "
+    "1024-aligned address, write them as they lie.")
 gather_extract_only = _s1(
     "gather_extract_only", "sa_gather_extract_only",
     gather_extract_only_plain,
-    "S1 extract only (replaces _v2_kernel): rotate-extract from a zeroed "
-    "bank; reads no sequence byte.")
+    "S1 extract only (replaces _v2_kernel): cut every row at its offset "
+    "from a zeroed bank; reads no sequence byte.")
 gather_dbuf = _s1(
     "gather_dbuf", "sa_gather_dbuf", gather_dbuf_plain,
     "S1 double-buffered (replaces _v3_kernel): K2's windows, block t+1's "

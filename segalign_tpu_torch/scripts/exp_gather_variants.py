@@ -4,9 +4,12 @@ Counterpart of scripts/exp_gather_variants.py. Cases (each a standalone
 kernel, not the main path's):
 
   v0_prod   K2, ops/gather.py gather_rows (the baseline)
-  v1_dma    S1 load only: aligned supersets staged, written unrotated
-  v2_rot    S1 extract only: rotate-extraction, no sequence bytes read
-  v3_dbuf   S1 double-buffered: block t+1's copies issued before t is cut
+  v1_dma    S1 load only: the W bytes at each row's 1024-aligned address
+            staged in shared memory, written as they lie
+  v2_rot    S1 extract only: every row cut at its byte offset from a zeroed
+            bank, no sequence bytes read
+  v3_dbuf   S1 double-buffered: the aligned cover of each window staged,
+            block t+1's copies issued before t is cut
   v4_fused  S2: the r and q windows of a row in one launch (2B rows)
 
 B = 131072 windows of W = 512 from sequences of 1e6 + AW + 8192 codes

@@ -9,7 +9,11 @@ Probes:
   gather        index gathers at B = 2^15, W = 128 and 512 from a 64 MB
                 sequence, random vs sorted starts; sort and argsort; the
                 (B, 2, 128) row-take superset; K2 (ops/gather.py
-                gather_rows), random vs sorted
+                gather_rows), random vs sorted; K3 (gather_rows_tile,
+                T = 64) on the same starts, and what choosing between
+                the two costs the host: the span check of one program's
+                2^17 starts (the clip and tile_spans_ok, as
+                pipeline/device.py calls them), microseconds a call
   scan          K5 (ops/window_scan_wide.py) at B = 2^15, W = 512, tile 0,
                 fresh state, beside a torch scan-only version
   searchsorted  searchsorted at S = 5 * 2^20, B = 2^15; take of 5M random
@@ -44,7 +48,7 @@ import torch
 from . import host_bench, print_card, require_cuda
 from .. import _build
 from ..ops.extend3 import init_state
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_rows, gather_rows_tile, tile_spans_ok
 from ..ops.probe import scale2
 from ..ops.window_scan_wide import window_scan_wide
 
@@ -80,6 +84,17 @@ def probe_gather(dev, iters):
                lambda: gather_rows(seq, starts, 512), 2, iters)
     host_bench(f"K2 gather_rows sorted B={B} W=512",
                lambda: gather_rows(seq, starts_sorted, 512), 2, iters)
+    host_bench(f"K3 gather_rows_tile T=64 B={B} W=512",
+               lambda: gather_rows_tile(seq, starts, 512, 64), 2, iters)
+    host_bench(f"K3 gather_rows_tile T=64 sorted B={B} W=512",
+               lambda: gather_rows_tile(seq, starts_sorted, 512, 64), 2,
+               iters)
+    loc = np.sort(rng.integers(0, SEQ_N - 4096, 1 << 17)).astype(np.int32)
+    us = _best_us(lambda: tile_spans_ok(
+        np.clip(4096 + loc.astype(np.int64) - 512, 0, SEQ_N - 1024), 1024,
+        64), iters)
+    print(f"tile_spans_ok, the host's span check of 2^17 starts: "
+          f"{us:.1f} us a call", flush=True)
 
 
 def _scan_only(r, q, sub):

@@ -260,7 +260,7 @@ def test_aligner_cuda_matches_cpu(dev):
 
 def _variant_inputs(rng, W, n, order):
     """A sequence of n + AW codes and 40_003 starts in [0, n] (not a
-    multiple of the 32 rows of a bank, and enough row blocks that every
+    multiple of the rows of a bank, and enough row blocks that every
     block loops), with both ends and 1024 boundaries among them."""
     from segalign_tpu_torch.ops.gather_variants import awin_for
     seq = rng.integers(0, 8, n + awin_for(W)).astype(np.uint8)
@@ -557,6 +557,164 @@ def test_every_launcher_counts_1000_launches(dev):
             call()
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1000, wrapper.__name__
+
+
+# ---- the staged gathers (K3, S1) at their edges
+
+def _tile_starts(rng, B, L, W, width):
+    """Tiles of 128 rows whose windows fit `width` bytes, at random
+    places."""
+    tiles = -(-B // 128)
+    base = rng.integers(0, max(L - width, 1), tiles)
+    return (np.repeat(base, 128)[:B]
+            + rng.integers(0, max(width - W, 1), B)).astype(np.int32)
+
+
+def _tile_check(dev, seq, starts, W, T):
+    """gather_rows_tile on the card against the plain version there."""
+    before = gather_rows_tile.launches
+    got = gather_rows_tile(seq, starts, W, T)
+    torch.cuda.synchronize()
+    assert gather_rows_tile.launches == before + 1
+    assert got.shape == (starts.numel(), W) and got.dtype == torch.uint8
+    assert torch.equal(got, gather_rows_plain(seq, starts, W))
+
+
+@pytest.mark.parametrize("T", [1, 64, 512, 1024])
+@pytest.mark.parametrize("B", [0, 1, 127, 128, 129, 1 << 17])
+def test_gather_rows_tile_batches(dev, B, T):
+    """No rows, one short tile, a whole one, one row more, and 2^17 rows
+    (more tiles than the card holds blocks, so blocks walk several), at
+    every stage size: T = 1 fits no window of 1024 (every row direct),
+    T = 1024 is capped at 96 KB a stage."""
+    rng = np.random.default_rng([B, T])
+    L, W = 3_000_001, 1024
+    seq = torch.from_numpy(rng.integers(0, 256, L).astype(np.uint8)).to(dev)
+    starts = _tile_starts(rng, B, L, W, max(T * 128 - 32, W + 1))
+    starts[5::1000] = rng.integers(-2000, L + 2000, len(starts[5::1000]))
+    _tile_check(dev, seq, torch.from_numpy(starts).to(dev), W, T)
+
+
+@pytest.mark.parametrize("m", [0, 1, 15])
+@pytest.mark.parametrize("W", [4, 8, 16, 20, 1024, 2048])
+@pytest.mark.parametrize("kind", ["clustered", "unclustered", "clamped"])
+def test_gather_rows_tile_widths(dev, kind, W, m):
+    """The 4-byte and the 16-byte routes, the sequence a view `m` bytes
+    off its storage's 16-byte boundary, of a length that is no multiple of
+    16; starts that cluster, that do not, and that the clamp moves."""
+    rng = np.random.default_rng([W, m, len(kind)])
+    L, B, T = 500_003, 3000, 64
+    base = torch.from_numpy(rng.integers(0, 256, L + m).astype(np.uint8))
+    seq = base.to(dev)[m:]
+    assert seq.data_ptr() % 16 == m
+    if kind == "clustered":
+        starts = _tile_starts(rng, B, L, W, T * 128 - 32)
+    elif kind == "unclustered":
+        starts = rng.integers(0, L - W, B).astype(np.int32)
+        starts[::128] = 0
+        starts[1::128] = L - W
+    else:
+        starts = rng.integers(-3000, L + 3000, B).astype(np.int32)
+        starts[:4] = [-1, -2**31, 2**31 - 1, L - W + 1]
+        starts[130:134] = [0, L - W, L - W - 1, 1]
+    _tile_check(dev, seq, torch.from_numpy(starts).to(dev), W, T)
+
+
+@pytest.mark.parametrize("lo_mod", [0, 1, 15])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("T", [1, 64, 512])
+def test_gather_rows_tile_span_at_the_cap(dev, T, delta, lo_mod):
+    """Tiles whose span is exactly T x 128 bytes, one under and one over,
+    from an aligned and an unaligned first byte."""
+    rng = np.random.default_rng([T, delta + 1, lo_mod])
+    W = 1024 if T > 8 else 16
+    L = 400_000
+    seq = torch.from_numpy(rng.integers(0, 256, L).astype(np.uint8)).to(dev)
+    lo = 4096 + lo_mod
+    hi = lo + T * 128 - W + delta
+    s = rng.integers(lo, hi + 1, 128)
+    s[[3, 77]] = [hi, lo]
+    starts = np.concatenate([s, s[::-1] + 200_000, s[:5]] * 40)
+    _tile_check(dev, seq, torch.from_numpy(starts.astype(np.int32)).to(dev),
+                W, T)
+
+
+@pytest.mark.parametrize("m", [0, 1, 8, 15])
+@pytest.mark.parametrize("L", [16, 17, 31, 32, 33, 64, 100])
+def test_gather_rows_tile_short_sequences(dev, L, m):
+    """Sequences of a few 16-byte words: the clipped stage can be empty."""
+    rng = np.random.default_rng([L, m])
+    seq = torch.from_numpy(
+        rng.integers(0, 256, L + m).astype(np.uint8)).to(dev)[m:]
+    starts = torch.from_numpy(
+        rng.integers(-5, L + 5, 140).astype(np.int32)).to(dev)
+    for W in (4, 16):
+        _tile_check(dev, seq, starts, W, 1)
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 15, 16, 17, 63, 65, 40_003])
+@pytest.mark.parametrize("W", [16, 512, 2048])
+@pytest.mark.parametrize("mode", ["dma_only", "extract_only", "dbuf"])
+def test_gather_variants_s1_offsets(dev, mode, W, B):
+    """S1 with starts at offsets 0, 1, 15, 16 and 1023 of a 1024-byte
+    slice and at both ends of the admitted range, B around a bank's rows
+    (8 or 16) and the row blocks a block walks."""
+    from segalign_tpu_torch.ops import gather_variants as gv
+    fn = getattr(gv, f"gather_{mode}")
+    plain = getattr(gv, f"gather_{mode}_plain")
+    rng = np.random.default_rng([W, len(mode), B])
+    L = 200_000 + gv.awin_for(W)
+    hi = L - gv.awin_for(W)
+    seq = torch.from_numpy(rng.integers(0, 256, L).astype(np.uint8)).to(dev)
+    starts = rng.integers(0, hi + 1, B).astype(np.int32)
+    edges = [hi, 0, 1, 15, 16, 1023, 1024, 2048 + 15, 4096 + 1023, hi - 1,
+             hi - 15, hi - 16]
+    starts[:len(edges)] = edges[:B]
+    starts = torch.from_numpy(starts).to(dev)
+    before = fn.launches
+    got = fn(seq, starts, W)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(seq, starts, W))
+
+
+def test_staged_gathers_1000_launches_on_a_side_stream(dev):
+    """K3 at both of the path's T and S1's three modes, 1000 launches each
+    in a row on a stream of the caller's: the last output is right, so the
+    two stages and their barriers hold from launch to launch."""
+    from segalign_tpu_torch.ops import gather_variants as gv
+    rng = np.random.default_rng(12)
+    L, B = 600_000, 4000
+    seq = torch.from_numpy(rng.integers(0, 256, L).astype(np.uint8)).to(dev)
+    tiled = torch.from_numpy(_tile_starts(rng, B, L, 1024, 8000)).to(dev)
+    free = torch.from_numpy(
+        rng.integers(0, L - 4096, B).astype(np.int32)).to(dev)
+    calls = [
+        (gather_rows_tile, lambda: gather_rows_tile(seq, tiled, 1024, 64),
+         lambda: gather_rows_plain(seq, tiled, 1024)),
+        (gather_rows_tile, lambda: gather_rows_tile(seq, tiled, 1024, 512),
+         lambda: gather_rows_plain(seq, tiled, 1024)),
+        (gv.gather_dma_only, lambda: gv.gather_dma_only(seq, free, 512),
+         lambda: gv.gather_dma_only_plain(seq, free, 512)),
+        (gv.gather_extract_only,
+         lambda: gv.gather_extract_only(seq, free, 512),
+         lambda: gv.gather_extract_only_plain(seq, free, 512)),
+        (gv.gather_dbuf, lambda: gv.gather_dbuf(seq, free, 512),
+         lambda: gv.gather_dbuf_plain(seq, free, 512)),
+    ]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for wrapper, call, plain in calls:
+        before = wrapper.launches
+        with torch.cuda.stream(side):
+            for _ in range(1000):
+                got = call()
+        side.synchronize()
+        assert wrapper.launches == before + 1000, wrapper.__name__
+        assert torch.equal(got, plain()), wrapper.__name__
+    by_T = gather_rows_tile.launches_by_T
+    assert by_T[64] >= 1000 and by_T[512] >= 1000
+    assert sum(by_T.values()) == gather_rows_tile.launches
 
 
 def test_stream_of_is_the_current_stream(dev):
