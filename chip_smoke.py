@@ -37,15 +37,33 @@ last line, and without CUDA the script fails at once:
      rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
      run is printed and must be above 0;
+  2c. the same slice through the farm, MultiDeviceAligner with two
+     aligners on cuda:0 (two worker threads and their finishers, one
+     stream): every chunk-strand's array equal to phase 2's, K1-K4
+     launched, no worker failed (the farm's errors and dead workers are
+     empty and each aligner did chunks) and no retry pass; its wall beside
+     one aligner's, each run twice (farm, one, one, farm);
   2b. the same slice on the device-seeding route
      (DeviceAligner(device_seeding=True)): the same HSP arrays per
      chunk-strand, with window_scan_wide launched;
+  2d. the same slice through the sharded seed table, ShardedAligner with
+     four shards on cuda:0: every chunk-strand's HSPs, hit and seed counts
+     equal to phase 2b's, gather_rows and window_scan_wide launched; wall
+     and peak device memory beside phase 2b's;
   3. the CLI: python -m segalign_tpu_torch.cli.run_segalign on a FASTA
      pair made from a fixed seed, whose segments file must hash to what
      the JAX CLI (python -m segalign_tpu.cli.run_segalign) writes for it;
   3b. the repeat-masker CLI (segalign_tpu_torch.cli.run_segalign_repeat_
      masker) on a FASTA made from a fixed seed, on both seeding routes:
      each output must hash to what the JAX RM CLI writes for it;
+  3d. the CLIs' other modes on the same files: the pairwise CLI with
+     --num_devices 2 --device cuda:0, and with --sharded_table
+     --num_devices 2 --device cuda:0, each hashing to phase 3's sha256; the
+     RM CLI with --sharded_table --num_devices 2 hashing to phase 3b's;
+     the pairwise CLI as host 0 and as host 1 of two (--num_hosts 2
+     --host_id N, five intervals), whose lines are disjoint and together
+     are the one-host run's; and --gapped_mode native --format maf-, whose
+     MAF must hash to what the JAX CLI writes for the pair;
   3c. the repeat masker at real size: run_repeat_masker with RMConfig's
      defaults on the pair's 4 Mbp reference written as a FASTA, on both
      routes, whose interval files must be byte-identical (each route's
@@ -62,7 +80,9 @@ else: no jax and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -80,6 +100,10 @@ CLI_SHA256 = ("b22745639ef85cc28e256df51fcea5fb"
 # out.seg --markend` on write_rm_genome's file
 RM_CLI_SHA256 = ("1fc0f6b707ea7caa71c6ffa90efa9fa5"
                  "1cc47817aabff211cfcade08ab90a80e")
+# sha256 of `segalign_tpu.cli.run_segalign ref.fa query.fa --gapped_mode
+# native --format maf- --output out.maf` on write_cli_pair's files
+GAPPED_CLI_SHA256 = ("2a6c4edba60baf6d41efdef1f191548a"
+                     "b3f3d284e2340b3dd1a5a1d338f2e9a8")
 # genome length of phase 3c (the repeat-1x reference, not cut)
 RM_REAL_LEN = 4_000_000
 
@@ -241,6 +265,30 @@ def bound_ms(nbytes: float, ops: float = 0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def run_cli(module: str, argv: list, cwd: str, label: str, **env) -> float:
+    """Run one of the port's CLIs in a process of its own; fail unless it
+    exits 0 without the farm's retry pass. Returns its seconds."""
+    t0 = time.time()
+    cli = subprocess.run(
+        [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}", *argv],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT, **env),
+        capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0:
+        fail(f"{label} exited {cli.returncode}:\n{cli.stderr[-3000:]}")
+    if "after device failure" in cli.stderr:
+        fail(f"{label} retried chunks after a device failure:\n"
+             f"{cli.stderr[-3000:]}")
+    return time.time() - t0
+
+
+def read_output(path: str):
+    """(bytes, sha256) of a CLI's output file; removes the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    os.remove(path)
+    return data, hashlib.sha256(data).hexdigest()
+
+
 class Kernels:
     """Per-kernel findings of phase 1."""
 
@@ -303,6 +351,8 @@ def main():
         window_scan_plain
     from segalign_tpu_torch.ops.window_scan_wide import window_scan_wide, \
         window_scan_wide_plain
+    from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
+    from segalign_tpu_torch.parallel.sharded import ShardedAligner
     from segalign_tpu_torch.pipeline.device import (CONT_W, FIRST_W, PAD,
                                                     DeviceAligner)
     from segalign_tpu_torch.pipeline.repeat_masker import run_repeat_masker
@@ -643,6 +693,75 @@ def main():
         if launches[k] == 0:
             fail(f"{k} was not launched on the main path")
 
+    def same_results(got, want, label):
+        for w, a, b in zip(work, got, want):
+            if (a.num_hits, a.num_seeds) != (b.num_hits, b.num_seeds) or \
+                    not np.array_equal(a.hsps, b.hsps):
+                fail(f"{label} on chunk {w.chunk_start}:{w.chunk_end} "
+                     f"rev={w.rev}")
+        n = sum(len(r.hsps) for r in got)
+        if n != EXPECTED_HSPS:
+            fail(f"{label}: {n} HSPs, expected {EXPECTED_HSPS}")
+
+    def timed(aligner, **kw):
+        """(results, seconds, what it wrote to stderr) of one map_chunks."""
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stderr(err):
+            out = aligner.map_chunks(work, **kw)
+        torch.cuda.synchronize()
+        sys.stderr.write(err.getvalue())
+        return out, time.time() - t0, err.getvalue()
+
+    # ---- phase 2c: the farm, two aligners on the one card
+    print("phase 2c: MultiDeviceAligner(device='cuda:0', num_devices=2)"
+          ".map_chunks over the repeat-1x pair", flush=True)
+    host_tables = al._host_tables
+    shared_kw = {k: v for k, v in settings.items() if k != "device"}
+    farm = MultiDeviceAligner(device="cuda:0", num_devices=2, **shared_kw)
+    farm.set_ref(ref, tables=host_tables)
+    farm.set_query(query, qrc)
+
+    def farm_ran_whole(label):
+        """Both workers lived: a failure that the requeue absorbed changes
+        no result, so it must show here."""
+        if farm.errors or farm.dead:
+            fail(f"{label}: aligner(s) {sorted(farm.dead)} of the farm "
+                 f"failed, and no failure was injected: {farm.errors!r}")
+        if min(farm.chunks_by) == 0 or sum(farm.chunks_by) != len(work):
+            fail(f"{label}: chunks by aligner {farm.chunks_by} of "
+                 f"{len(work)}: an aligner did none")
+
+    reset_counts()
+    results_f, dt_f1, said = timed(farm, depth=bench_inputs.DEPTH)
+    farm_ran_whole("the farm's first run")
+    chunks_by = list(farm.chunks_by)
+    launches_f = {k: w.launches for k, w in wrappers.items()}
+    by_slice["farm_pair"] = launches_f
+    by_T["farm_pair"] = dict(gather_rows_tile.launches_by_T)
+    same_results(results_f, results, "the farm differs from one aligner")
+    _, dt_o1, _ = timed(al, depth=bench_inputs.DEPTH)
+    _, dt_o2, _ = timed(al, depth=bench_inputs.DEPTH)
+    results_f, dt_f2, said2 = timed(farm, depth=bench_inputs.DEPTH)
+    farm_ran_whole("the farm's second run")
+    same_results(results_f, results, "the farm's second run differs from "
+                 "one aligner")
+    if "after device failure" in said + said2:
+        fail("the farm retried chunks, and no failure was injected")
+    # the wrappers count without a lock: under two worker threads a count
+    # can lose increments, so these are lower bounds
+    print(f"farm: {EXPECTED_HSPS} HSPs, every chunk-strand equal to one "
+          f"aligner's; no worker failed, chunks by aligner {chunks_by} and "
+          f"{farm.chunks_by}; wall farm {dt_f1:.3f} and {dt_f2:.3f} s, one aligner "
+          f"{dt:.3f} (phase 2, first run), {dt_o1:.3f} and {dt_o2:.3f} s; "
+          f"launches (lower bounds) {launches_f} [{card}]", flush=True)
+    for k in ("gather_rows", "gather_rows_tile", "first_scan",
+              "window_scan"):
+        if launches_f[k] == 0:
+            fail(f"{k} was not launched by the farm")
+    del farm, results_f
+
     # ---- phase 2b: the device-seeding route on the same slice
     print("phase 2b: DeviceAligner(device_seeding=True).map_chunks over "
           "the repeat-1x pair", flush=True)
@@ -669,16 +788,42 @@ def main():
           f"{len(query) / 1e6 / dt_d:.3f} Mbp/s, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
           f"launches {launches_d} [{card}]", flush=True)
-    for w, a, b in zip(work, results, results_d):
-        if (a.num_hits, a.num_seeds) != (b.num_hits, b.num_seeds) or \
-                not np.array_equal(a.hsps, b.hsps):
-            fail(f"device route differs from the native route on chunk "
-                 f"{w.chunk_start}:{w.chunk_end} rev={w.rev}")
-    if n_d != EXPECTED_HSPS:
-        fail(f"device route: {n_d} HSPs, expected {EXPECTED_HSPS}")
+    same_results(results_d, results,
+                 "the device route differs from the native route")
     if launches_d["window_scan_wide"] == 0:
         fail("window_scan_wide was not launched on the device route")
-    del al_d, results, results_d
+    mem_d = torch.cuda.max_memory_allocated(dev)
+    del al_d, results
+    torch.cuda.empty_cache()
+
+    # ---- phase 2d: the sharded seed table, four shards on the one card
+    print("phase 2d: ShardedAligner(device='cuda:0', num_devices=4)"
+          ".map_chunks over the repeat-1x pair", flush=True)
+    t0 = time.time()
+    shd = ShardedAligner(device="cuda:0", num_devices=4, **shared_kw)
+    shd.set_ref(ref, tables=host_tables)
+    shd.set_query(query, qrc)
+    print(f"sharded set-up (table slices and sequences to the card) "
+          f"{time.time() - t0:.1f} s", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    results_s, dt_s, _ = timed(shd)
+    launches_s = {k: w.launches for k, w in wrappers.items()}
+    by_slice["sharded_pair"] = launches_s
+    by_T["sharded_pair"] = dict(gather_rows_tile.launches_by_T)
+    same_results(results_s, results_d,
+                 "the sharded table differs from the device route")
+    print(f"sharded table, 4 shards: {EXPECTED_HSPS} HSPs, every "
+          f"chunk-strand's HSPs, hits and seeds equal to the device "
+          f"route's; wall {dt_s:.3f} s (device route {dt_d:.3f} s), "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (device "
+          f"route {mem_d / 2**30:.2f} GiB), launches {launches_s} "
+          f"(device route {launches_d}) [{card}]", flush=True)
+    for k in ("gather_rows", "window_scan_wide"):
+        if launches_s[k] == 0:
+            fail(f"{k} was not launched by the sharded aligner")
+    del shd, results_s, results_d
     torch.cuda.empty_cache()
 
     # ---- phase 3: the CLI
@@ -686,54 +831,68 @@ def main():
     d = os.path.join(ROOT, "build", "chip_smoke_cli")
     os.makedirs(d, exist_ok=True)
     write_cli_pair(d)
-    out = os.path.join(d, "out.segments")
+    pair = [os.path.join(d, "ref.fa"), os.path.join(d, "query.fa")]
+    out = os.path.join(d, "out.txt")
     if os.path.exists(out):
         os.remove(out)
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    t0 = time.time()
-    cli = subprocess.run(
-        [sys.executable, "-m", "segalign_tpu_torch.cli.run_segalign",
-         os.path.join(d, "ref.fa"), os.path.join(d, "query.fa"),
-         "--nogapped", "--output", out, "--markend"],
-        cwd=d, env=env, capture_output=True, text=True, timeout=600)
-    if cli.returncode != 0:
-        fail(f"CLI exited {cli.returncode}:\n{cli.stderr[-3000:]}")
-    with open(out, "rb") as f:
-        data = f.read()
-    digest = hashlib.sha256(data).hexdigest()
-    n_seg = data.count(b"\n") - 1
-    print(f"cli: {n_seg} segments in "
-          f"{time.time() - t0:.1f} s, sha256 {digest}", flush=True)
-    if digest != CLI_SHA256:
-        fail(f"CLI output sha256 {digest} != {CLI_SHA256}")
+
+    def pairwise_cli(label, *argv, want=None):
+        """The pairwise CLI's output for the pair; its sha256 held to
+        `want` when that is given."""
+        secs = run_cli("run_segalign", [*pair, "--output", out, *argv], d,
+                       label)
+        data, digest = read_output(out)
+        print(f"{label}: {data.count(b'\n')} lines in {secs:.1f} s, sha256 "
+              f"{digest}", flush=True)
+        if want is not None and digest != want:
+            fail(f"{label}: output sha256 {digest} != {want}")
+        return data
+
+    pairwise_cli("cli", "--nogapped", "--markend", want=CLI_SHA256)
 
     # ---- phase 3b: the RM CLI on both routes
     print("phase 3b: the RM CLI on a fixed FASTA, both seeding routes",
           flush=True)
     write_rm_genome(d)
-    for route, extra in (("native", {}),
-                         ("device", {"SEGALIGN_DEVICE_SEEDING": "1"})):
-        out = os.path.join(d, f"rm_{route}.seg")
-        if os.path.exists(out):
-            os.remove(out)
-        t0 = time.time()
-        cli = subprocess.run(
-            [sys.executable, "-m",
-             "segalign_tpu_torch.cli.run_segalign_repeat_masker",
-             os.path.join(d, "seq.fa"), "--output", out, "--markend"],
-            cwd=d, env=dict(env, **extra), capture_output=True, text=True,
-            timeout=600)
-        if cli.returncode != 0:
-            fail(f"RM CLI ({route}) exited {cli.returncode}:\n"
-                 f"{cli.stderr[-3000:]}")
-        with open(out, "rb") as f:
-            data = f.read()
-        digest = hashlib.sha256(data).hexdigest()
+
+    def rm_cli(label, *argv, **env):
+        secs = run_cli("run_segalign_repeat_masker",
+                       [os.path.join(d, "seq.fa"), "--output", out,
+                        "--markend", *argv], d, label, **env)
+        data, digest = read_output(out)
         n_iv = data.count(b"\n") - 2   # less the header and the end mark
-        print(f"rm cli ({route} route): {n_iv} intervals "
-              f"in {time.time() - t0:.1f} s, sha256 {digest}", flush=True)
+        print(f"{label}: {n_iv} intervals in {secs:.1f} s, sha256 {digest}",
+              flush=True)
         if digest != RM_CLI_SHA256:
-            fail(f"RM CLI ({route}) sha256 {digest} != {RM_CLI_SHA256}")
+            fail(f"{label}: output sha256 {digest} != {RM_CLI_SHA256}")
+
+    rm_cli("rm cli (native route)")
+    rm_cli("rm cli (device route)", SEGALIGN_DEVICE_SEEDING="1")
+
+    # ---- phase 3d: the CLIs' other modes
+    print("phase 3d: the CLIs with two devices, the sharded table, two "
+          "hosts and the native gapped stage", flush=True)
+    one_card = ["--num_devices", "2", "--device", "cuda:0"]
+    pairwise_cli("cli, two aligners on cuda:0", "--nogapped", "--markend",
+                 *one_card, want=CLI_SHA256)
+    pairwise_cli("cli, sharded table, two shards on cuda:0", "--nogapped",
+                 "--markend", "--sharded_table", *one_card, want=CLI_SHA256)
+    rm_cli("rm cli, sharded table, two shards on cuda:0", "--sharded_table",
+           *one_card)
+    # five intervals, so that each of two hosts has some
+    split = ["--nogapped", "--lastz_interval_size", "30000"]
+    single = pairwise_cli("cli, one host", *split).splitlines()
+    hosts = [pairwise_cli(f"cli, host {h} of 2", *split, "--num_hosts", "2",
+                          "--host_id", str(h)).splitlines() for h in (0, 1)]
+    if not hosts[0] or not hosts[1] or set(hosts[0]) & set(hosts[1]):
+        fail(f"two hosts: {len(hosts[0])} and {len(hosts[1])} lines, "
+             f"{len(set(hosts[0]) & set(hosts[1]))} in both")
+    if sorted(hosts[0] + hosts[1]) != sorted(single):
+        fail("two hosts' lines together are not the one-host run's")
+    print(f"two hosts: {len(hosts[0])} + {len(hosts[1])} disjoint lines, "
+          f"together the one-host run's {len(single)}", flush=True)
+    pairwise_cli("cli, native gapped stage, maf-", "--gapped_mode", "native",
+                 "--format", "maf-", want=GAPPED_CLI_SHA256)
 
     # ---- phase 3c: the repeat masker at real size, both routes
     print("phase 3c: run_repeat_masker on the repeat-1x reference",

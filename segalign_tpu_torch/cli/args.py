@@ -25,7 +25,7 @@ def _add_multihost_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--host_id", type=int, default=-1,
                    help="this host's id in [0, num_hosts)")
     p.add_argument("--coordinator", default="",
-                   help="ip:port of host 0's jax.distributed coordinator "
+                   help="ip:port of host 0's torch.distributed coordinator "
                         "(required for a multi-host device mesh, e.g. "
                         "--sharded_table across hosts; optional for the "
                         "replicated v1 mode, which needs no communication)")

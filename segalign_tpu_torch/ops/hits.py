@@ -13,10 +13,11 @@ import torch
 
 
 def expand_hits(cum, starts, qpos, pos_table, g0: int, g1: int,
-                seed_size: int, *, HBUF: int):
+                seed_size: int, *, HBUF: int, with_seed: bool = False):
     """Hits [g0, g1) (at most HBUF) as (ref_loc, query_loc, valid), each
     (HBUF,); locations include the +seed_size offset of the reference's
-    find_hits. Rows past g1 - g0 are not valid."""
+    find_hits. Rows past g1 - g0 are not valid. with_seed adds a fourth
+    array: the index into cum of each hit's seed."""
     dev = cum.device
     g = g0 + torch.arange(HBUF, dtype=torch.int32, device=dev)
     valid = g < g1
@@ -30,6 +31,8 @@ def expand_hits(cum, starts, qpos, pos_table, g0: int, g1: int,
     bucket_pos = bucket_pos.clamp(0, pos_table.shape[0] - 1)
     ref_loc = pos_table[bucket_pos.long()] + seed_size
     query_loc = qpos[sidx.long()] + seed_size
+    if with_seed:
+        return ref_loc, query_loc, valid, sidx
     return ref_loc, query_loc, valid
 
 

@@ -2,7 +2,9 @@
 transition variants, and the hit count of each seed.
 
 Counterpart of segalign_tpu/ops/seeding.py chunk_seeds, in plain PyTorch
-(the JAX version is XLA, not a Pallas kernel). Seed slot order is the
+(the JAX version is XLA, not a Pallas kernel). chunk_kmers is the part that
+reads no seed table, which the sharded aligner calls on its own
+(parallel/sharded.py), and bucket_ranges the table lookup. Seed slot order is the
 reference's: position-major, then the base k-mer, then its k transition
 variants; the hit-batch boundaries depend on it. The cumulative hit count
 is an int32 cumsum with int32 wraparound, as in the JAX package (whose
@@ -16,18 +18,13 @@ import torch
 from ..constants import TRANSITION_MASK
 
 
-def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
-                CHUNK: int, seed_size: int, shape_pos: tuple,
-                transition: bool, pad: int):
-    """The seeds of chunk [chunk_start, chunk_start + chunk_len).
-
-    query_pad: 1-D uint8 padded query with `pad` bytes before position 0,
-    at least chunk_start + CHUNK + seed_size - 1 bytes past `pad`;
-    index_table: (4^k,) int32 bucket ends. Returns (kmers, qpos, valid,
-    starts, cum, stats), all (S,) with S = CHUNK * (1 + k) with transitions
-    (CHUNK without): cum is the inclusive int32 cumsum of the per-seed hit
-    counts (0 for invalid slots); stats is (2,) int32: the number of valid
-    seeds and of hits."""
+def chunk_kmers(query_pad, chunk_start: int, chunk_len: int, *, CHUNK: int,
+                seed_size: int, shape_pos: tuple, transition: bool,
+                pad: int):
+    """The seed slots of chunk [chunk_start, chunk_start + chunk_len), with
+    no seed table read: (kmers, qpos, valid), all (S,) with S = CHUNK *
+    (1 + k) with transitions (CHUNK without). query_pad as for chunk_seeds.
+    """
     k = len(shape_pos)
     nvar = 1 + k if transition else 1
     s0 = pad + chunk_start
@@ -54,11 +51,35 @@ def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
         kmers = kmer
     qpos = (chunk_start + j).repeat_interleave(nvar)
     valid = valid_pos.repeat_interleave(nvar)
-    ends = index_table[kmers.long()]
-    # kmers - 1 is -1 at kmer 0, where the where() picks 0: clamp it, since
-    # torch indexing would wrap it to the last bucket
-    starts = torch.where(kmers > 0,
-                         index_table[(kmers - 1).clamp(min=0).long()], 0)
+    return kmers, qpos, valid
+
+
+def bucket_ranges(index_table, buckets):
+    """(starts, ends) of buckets in a table of inclusive bucket ends."""
+    ends = index_table[buckets.long()]
+    # buckets - 1 is -1 at bucket 0, where the where() picks 0: clamp it,
+    # since torch indexing would wrap it to the last bucket
+    starts = torch.where(buckets > 0,
+                         index_table[(buckets - 1).clamp(min=0).long()], 0)
+    return starts, ends
+
+
+def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
+                CHUNK: int, seed_size: int, shape_pos: tuple,
+                transition: bool, pad: int):
+    """The seeds of chunk [chunk_start, chunk_start + chunk_len).
+
+    query_pad: 1-D uint8 padded query with `pad` bytes before position 0,
+    at least chunk_start + CHUNK + seed_size - 1 bytes past `pad`;
+    index_table: (4^k,) int32 bucket ends. Returns (kmers, qpos, valid,
+    starts, cum, stats), all (S,) with S = CHUNK * (1 + k) with transitions
+    (CHUNK without): cum is the inclusive int32 cumsum of the per-seed hit
+    counts (0 for invalid slots); stats is (2,) int32: the number of valid
+    seeds and of hits."""
+    kmers, qpos, valid = chunk_kmers(
+        query_pad, chunk_start, chunk_len, CHUNK=CHUNK, seed_size=seed_size,
+        shape_pos=shape_pos, transition=transition, pad=pad)
+    starts, ends = bucket_ranges(index_table, kmers)
     hit_counts = torch.where(valid, ends - starts, 0)
     cum = torch.cumsum(hit_counts, 0, dtype=torch.int32)
     stats = torch.stack([valid.sum(dtype=torch.int32), cum[-1]])

@@ -1,1 +1,2 @@
-"""Work distribution of the port (one device)."""
+"""Work distribution of the port: the device farm, the host split and the
+sharded seed table."""

@@ -32,6 +32,7 @@ device on the card.
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -57,6 +58,15 @@ DEFAULT_MAX_HITS = 4194304 * 16  # reference: MAX_HITS_PER_GB * gpu_mem_gb
 FIRST_W = 512
 CONT_W = 2048
 PAD = max(FIRST_W, CONT_W)  # sequence padding that covers every window
+
+
+def on_device(device: torch.device):
+    """A context in which `device` is the thread's current CUDA device (a
+    kernel launches only onto a stream of the current device, and the
+    current device is per thread); nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @dataclass
@@ -136,12 +146,19 @@ def _plan_limits(cum: torch.Tensor, num_hits: int, max_hits: int,
     return poss, vals
 
 
+def _batch_limits(cum: torch.Tensor, num_hits: int, max_hits: int):
+    """_plan_limits over as many steps as the reference's batching takes:
+    the last seed slot and the end offset into the hit stream of every
+    logical hit batch but the last."""
+    num_iter = 2 if num_hits < max_hits else num_hits // max_hits + 2
+    return _plan_limits(cum, num_hits, max_hits, num_iter)
+
+
 def _batch_ends(cum: torch.Tensor, num_hits: int, max_hits: int) -> list:
     """End offsets into the hit stream of the logical hit batches: the
     chain of _plan_limits and a last batch that ends at num_hits, dropped
     when its seed position repeats the chain's last one."""
-    num_iter = 2 if num_hits < max_hits else num_hits // max_hits + 2
-    poss, vals = _plan_limits(cum, num_hits, max_hits, num_iter)
+    poss, vals = _batch_limits(cum, num_hits, max_hits)
     limit_pos = poss + [cum.shape[0] - 1]
     hit_bound = vals + [num_hits]
     if limit_pos[-1] == limit_pos[-2]:
@@ -171,6 +188,24 @@ def _process_hit_range(ref_pad, query_pad, pos_table, cum, starts, qpos,
     return torch.cat([rs[:n, None], qs[:n, None], ln[:n, None],
                       total[:n, None], counts[:n]],
                      dim=1).cpu().numpy().astype(np.int64)
+
+
+def finalize_batch(rs, qs, ln, total, counts, *, hspthresh: int,
+                   noentropy: bool, rm_mode: bool, rev: bool, ref_len: int):
+    """Entropy finalize and dedup of one logical hit batch's candidates,
+    given their match counts; an (n, 4) int64 array or None."""
+    accepted, scores = finalize_candidates(rs, qs, ln, total, counts,
+                                           hspthresh, noentropy)
+    if not accepted.any():
+        return None
+    rs, qs, ln, sc = (rs[accepted], qs[accepted], ln[accepted],
+                      scores[accepted])
+    if rm_mode and rev:
+        # minus-strand remap onto forward-strand coordinates (the
+        # reference repeat masker's seed_filter.cu:705-709)
+        qs = ref_len - 1 - (qs + ln)
+    rs, qs, ln, sc = (dedup_rm if rm_mode else dedup_pairwise)(rs, qs, ln, sc)
+    return np.stack([rs, qs, ln, sc], axis=1)
 
 
 class DeviceAligner:
@@ -285,10 +320,8 @@ class DeviceAligner:
 
     def _finish_on_device(self, p: PendingChunk) -> ChunkResult:
         # the current CUDA device is per thread: name it in the finisher
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                return self.finish_chunk(p)
-        return self.finish_chunk(p)
+        with on_device(self.device):
+            return self.finish_chunk(p)
 
     def seed_and_filter(self, chunk_start: int, chunk_end: int, rev: bool,
                         window: Optional[Tuple[int, int]] = None
@@ -402,19 +435,10 @@ class DeviceAligner:
                     q = self._q_rc_host if rev else self._q_fw_host
                     counts[band] = entropy_counts_host(
                         self._ref_host, q, rs[band], qs[band], ln[band])
-        accepted, scores = finalize_candidates(
-            rs, qs, ln, total, counts, self.hspthresh, self.noentropy)
-        if not accepted.any():
-            return None
-        rs, qs, ln, sc = (rs[accepted], qs[accepted], ln[accepted],
-                          scores[accepted])
-        if self.rm_mode and rev:
-            # minus-strand remap onto forward-strand coordinates (the
-            # reference repeat masker's seed_filter.cu:705-709)
-            qs = self.ref_len - 1 - (qs + ln)
-        dedup = dedup_rm if self.rm_mode else dedup_pairwise
-        rs, qs, ln, sc = dedup(rs, qs, ln, sc)
-        return np.stack([rs, qs, ln, sc], axis=1)
+        return finalize_batch(
+            rs, qs, ln, total, counts, hspthresh=self.hspthresh,
+            noentropy=self.noentropy, rm_mode=self.rm_mode, rev=rev,
+            ref_len=self.ref_len)
 
     def _seed_and_filter_device(self, chunk_start: int, chunk_end: int,
                                 rev: bool,

@@ -3,8 +3,10 @@
 Counterpart of segalign_tpu/pipeline/pairwise.py run_pairwise. Reference
 blocks are the outer loop and query blocks the inner one, so each
 reference block's seed table is built once; the chunks of each interval
-stream through the one device's aligner. Multi-host runs and the sharded
-seed table are not ported yet (ROADMAP, Queue 1).
+stream through the aligner: the farm over one or several devices
+(parallel/multi.py), or the sharded seed table (parallel/sharded.py) for
+cfg.sharded_table. Of several hosts each aligns its round-robin slice of
+the intervals and writes its own files (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from ..logging_util import log_event
 from ..output.segments import PrinterContext, write_interval_segments
 from .manifest import Manifest
 
+from ..parallel.distributed import (maybe_initialize_distributed,
+                                    partition_intervals)
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
+from ..parallel.sharded import ShardedAligner
 
 
 @dataclass
@@ -47,14 +52,6 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
     out_dir, and passes each lastz command line to `emit` (default: print
     to stdout, the reference's data channel). device_seeding selects the
     aligner's device-seeding route."""
-    if cfg.sharded_table:
-        raise NotImplementedError(
-            "--sharded_table is not ported yet (ROADMAP Queue 1, "
-            "'Sharded table')")
-    if int(os.environ.get("SEGALIGN_NUM_HOSTS", "1")) > 1:
-        raise NotImplementedError(
-            "multi-host runs are not ported yet (ROADMAP Queue 1, "
-            "'Multi-host')")
     if emit is None:
         emit = lambda line: print(line, flush=True)
     stats = PipelineStats()
@@ -81,6 +78,11 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
 
     intervals = plan_intervals(query.blocks, cfg.seed.size,
                                cfg.lastz_interval_size)
+    host_id, num_hosts = maybe_initialize_distributed(device)
+    my_intervals = partition_intervals(intervals, host_id, num_hosts)
+    if num_hosts > 1:
+        log(f"Host {host_id}/{num_hosts}: {len(my_intervals)} of "
+            f"{len(intervals)} intervals")
     ctx = PrinterContext(
         r_chr_names=[c.name for c in target.chroms],
         r_chr_starts=target.chr_starts,
@@ -96,14 +98,20 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
         extra["max_hits"] = cfg.max_hits
     if cfg.device_hbuf:
         extra["HBUF"] = cfg.device_hbuf
-    aligner = MultiDeviceAligner(
+    if cfg.sharded_table:
+        # the sharded aligner has one route: it seeds on the device
+        aligner_cls = ShardedAligner
+    else:
+        aligner_cls = MultiDeviceAligner
+        extra["device_seeding"] = device_seeding
+    aligner = aligner_cls(
         device=device, num_devices=cfg.num_devices,
         shape_pos=cfg.seed.shape_pos, seed_size=cfg.seed.size,
         transition=cfg.seed.transition, step=cfg.step, sub_mat=cfg.sub_mat,
         xdrop=cfg.xdrop, hspthresh=cfg.hspthresh, noentropy=cfg.noentropy,
-        chunk_size=cfg.wga_chunk_size, device_seeding=device_seeding,
-        **extra)
-    log(f"Using {aligner.num_devices} device(s): {device}")
+        chunk_size=cfg.wga_chunk_size, **extra)
+    log(f"Using {aligner.num_devices} device(s): {device}"
+        + (" [sharded table]" if cfg.sharded_table else ""))
 
     do_plus = cfg.strand in ("plus", "both")
     do_minus = cfg.strand in ("minus", "both")
@@ -112,8 +120,8 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
     t_start = time.time()
     log("\nStart alignment ...")
     log_event("run_start", mode="pairwise", ref=cfg.reference_filename,
-              query=cfg.query_filename, intervals=len(intervals), host=0,
-              num_hosts=1)
+              query=cfg.query_filename, intervals=len(my_intervals),
+              host=host_id, num_hosts=num_hosts)
     for rb in target.blocks:
         log(f"\nSending reference block {rb.index} ...")
         log_event("ref_block", block=rb.index, start=rb.start, len=rb.len)
@@ -128,7 +136,7 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
                               query.rc_codes[qb.start:qb.start + qb.len])
             q_len = qb.len - cfg.seed.size
 
-            for iv in (i for i in intervals if i.block == qb.index):
+            for iv in (i for i in my_intervals if i.block == qb.index):
                 key = (rb.index, qb.index, iv.num_invoked)
                 if manifest.is_done(key):
                     stats.intervals_done += 1

@@ -1,4 +1,4 @@
-"""Repeat-masker pipeline: self-alignment coverage intervals on one device.
+"""Repeat-masker pipeline: self-alignment coverage intervals.
 
 Counterpart of segalign_tpu/pipeline/repeat_masker.py run_repeat_masker,
 which the port cannot share: it imports the JAX package's device pool.
@@ -15,7 +15,8 @@ module imports jax. tests/test_torch_repeat_masker.py holds each copy
 equal to its original. They keep the reference's quirks: coverage counts
 are uint8 and wrap at 256, an HSP covers len positions, a covered run that
 touches the end of the block is never emitted, and a block with less room
-than left_overlap starts at l, not 0. The sharded table is not ported yet.
+than left_overlap starts at l, not 0. cfg.sharded_table selects the sharded
+seed table (parallel/sharded.py) in place of the device farm.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..logging_util import log_event
 from .manifest import Manifest
 
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
+from ..parallel.sharded import ShardedAligner
 from .pairwise import PipelineStats
 
 
@@ -197,10 +199,6 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
     tmp{interval}.block{block}.intervals file per interval with runs, in
     out_dir. aligner: a prepared rm_mode aligner (tests); device_seeding
     selects the aligner's device-seeding route."""
-    if cfg.sharded_table:
-        raise NotImplementedError(
-            "--sharded_table is not ported yet (ROADMAP Queue 1, "
-            "'Sharded table')")
     stats = PipelineStats()
     log = lambda msg: print(msg, file=sys.stderr, flush=True)
 
@@ -216,13 +214,19 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
         extra = {}
         if cfg.max_hits:
             extra["max_hits"] = cfg.max_hits
-        aligner = MultiDeviceAligner(
+        if cfg.sharded_table:
+            # the sharded aligner has one route: it seeds on the device
+            aligner_cls = ShardedAligner
+        else:
+            aligner_cls = MultiDeviceAligner
+            extra["device_seeding"] = device_seeding
+        aligner = aligner_cls(
             device=device, num_devices=cfg.num_devices,
             shape_pos=cfg.seed.shape_pos, seed_size=cfg.seed.size,
             transition=cfg.seed.transition, step=cfg.step,
             sub_mat=cfg.sub_mat, xdrop=cfg.xdrop, hspthresh=cfg.hspthresh,
             noentropy=cfg.noentropy, chunk_size=cfg.wga_chunk_size,
-            rm_mode=True, device_seeding=device_seeding, **extra)
+            rm_mode=True, **extra)
 
     do_plus = cfg.strand in ("plus", "both")
     do_minus = cfg.strand in ("minus", "both")

@@ -3,11 +3,14 @@ each.
 
     python -m segalign_tpu_torch.scripts.slice_walls [runs]
 
-Four slices, at the sizes of chip_smoke.py's phases 2, 2b and 3c:
+Six slices, at the sizes of chip_smoke.py's phases 2, 2c, 2b, 2d and 3c:
 
   native_pair  DeviceAligner.map_chunks over both strands of every 250 kb
                chunk of the repeat-1x 4 Mbp x 4 Mbp pair (bench_inputs)
+  farm_pair    the same through MultiDeviceAligner, two aligners on the one
+               card
   device_pair  the same on the device-seeding route
+  sharded_pair the same through ShardedAligner, four shards on the one card
   rm_native    run_repeat_masker with RMConfig's defaults on the pair's
   rm_device    4 Mbp reference, on either route
 
@@ -33,6 +36,8 @@ from . import print_card, require_cuda
 from .. import bench_inputs
 from ..config import RMConfig
 from ..io.encode import revcomp_codes
+from ..parallel.multi import MultiDeviceAligner
+from ..parallel.sharded import ShardedAligner
 from ..pipeline.device import DeviceAligner
 from ..pipeline.repeat_masker import run_repeat_masker
 
@@ -89,14 +94,22 @@ def main(argv=None):
     al.set_ref(ref)
     al.set_query(query, qrc)
     tables = al._host_tables
-    measure("native_pair", lambda: al.map_chunks(work, depth=bench_inputs.DEPTH), runs, card)
+    measure("native_pair",
+            lambda: al.map_chunks(work, depth=bench_inputs.DEPTH), runs, card)
     del al
-    al = DeviceAligner(**settings, device_seeding=True)
-    al.set_ref(ref, tables=tables)
-    al.set_query(query, qrc)
-    measure("device_pair", lambda: al.map_chunks(work), runs, card)
-    del al
-    torch.cuda.empty_cache()
+    for name, make, kw in (
+            ("farm_pair", lambda: MultiDeviceAligner(
+                **settings, num_devices=2), dict(depth=bench_inputs.DEPTH)),
+            ("device_pair", lambda: DeviceAligner(
+                **settings, device_seeding=True), {}),
+            ("sharded_pair", lambda: ShardedAligner(
+                **settings, num_devices=4), {})):
+        al = make()
+        al.set_ref(ref, tables=tables)
+        al.set_query(query, qrc)
+        measure(name, lambda: al.map_chunks(work, **kw), runs, card)
+        del al
+        torch.cuda.empty_cache()
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

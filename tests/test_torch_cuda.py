@@ -737,3 +737,194 @@ def test_stream_of_is_the_current_stream(dev):
     side.synchronize()
     assert torch.equal(y, x * 2)
     assert _build.stream_of(dev) == public() != side.cuda_stream
+
+
+def _small_pair_work(chunk=20_000):
+    """A 0.2 Mbp x 0.2 Mbp pair of the benchmark's generator, its aligner
+    settings at a chunk size that gives twenty chunk-strands."""
+    from segalign_tpu_torch import bench_inputs
+    from segalign_tpu_torch.io.encode import revcomp_codes
+    from segalign_tpu_torch.parallel.multi import ChunkWork
+    ref, query = bench_inputs.load_inputs(0.2, 0.2)
+    kw = dict(bench_inputs.aligner_settings("cuda:0"), chunk_size=chunk)
+    q_len = len(query) - kw["seed_size"]
+    work = [ChunkWork(cs, min(cs + chunk, q_len), rev)
+            for cs in range(0, q_len, chunk) for rev in (False, True)]
+    return ref, query, revcomp_codes(query), kw, work
+
+
+def _assert_same_results(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a.num_hits, a.num_seeds) == (b.num_hits, b.num_seeds)
+        np.testing.assert_array_equal(a.hsps, b.hsps)
+
+
+@pytest.mark.parametrize("device_seeding", [False, True],
+                         ids=["native", "device"])
+def test_two_aligners_on_one_card_repeatedly(dev, device_seeding):
+    """The farm with two aligners on cuda:0: two worker threads and their
+    finishers launch and fetch on one stream; every run must give one
+    aligner's arrays."""
+    from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
+    ref, query, qrc, kw, work = _small_pair_work()
+    kw["device_seeding"] = device_seeding
+    one = MultiDeviceAligner(num_devices=1, **kw)
+    two = MultiDeviceAligner(num_devices=2, **kw)
+    for al in (one, two):
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    want = one.map_chunks(work)
+    assert sum(len(r.hsps) for r in want) > 0
+    before = gather_rows.launches
+    chunks_by = np.zeros(2, np.int64)
+    for _ in range(2 if device_seeding else 8):
+        _assert_same_results(two.map_chunks(work, depth=2), want)
+        # no failure that the requeue absorbed
+        assert not two.errors and not two.dead
+        chunks_by += two.chunks_by
+    assert gather_rows.launches > before
+    assert chunks_by.min() > 0 and chunks_by.sum() == len(work) * (
+        2 if device_seeding else 8)
+
+
+@pytest.mark.parametrize("max_hits", [10**9, 500])
+def test_sharded_table_on_one_card(dev, max_hits):
+    """Four shards on cuda:0 against the replicated device route, with one
+    and with several hit batches a chunk-strand."""
+    from segalign_tpu_torch.parallel.sharded import ShardedAligner
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    ref, query, qrc, kw, work = _small_pair_work()
+    kw["max_hits"] = max_hits
+    want_al = DeviceAligner(device_seeding=True, **kw)
+    got_al = ShardedAligner(num_devices=4, **kw)
+    for al in (want_al, got_al):
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    want = want_al.map_chunks(work)
+    assert sum(len(r.hsps) for r in want) > 0
+    assert max(r.num_hits for r in want) > 2 * 500
+    before = window_scan_wide.launches
+    _assert_same_results(got_al.map_chunks(work), want)
+    assert window_scan_wide.launches > before
+
+
+def test_farm_and_shards_over_several_cards(dev):
+    """--device cuda with every card of the machine: an aligner a card in
+    the farm (both routes), shards round-robin over the cards; each must
+    give one card's arrays. Skips on a machine with one card."""
+    from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
+    from segalign_tpu_torch.parallel.sharded import ShardedAligner
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    ref, query, qrc, kw, work = _small_pair_work()
+    kw["device"] = "cuda"
+    one = MultiDeviceAligner(num_devices=1, **kw)
+    farms = [MultiDeviceAligner(num_devices=-1, device_seeding=ds, **kw)
+             for ds in (False, True)]
+    shards = ShardedAligner(num_devices=n, **kw)
+    assert [a.device.index for a in farms[0].aligners] == list(range(n))
+    assert {d.index for d in shards.devices} == set(
+        range(min(n, shards.num_devices)))
+    want = None
+    for al in (one, *farms, shards):
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+        got = al.map_chunks(work)
+        if want is None:
+            want = got
+            assert sum(len(r.hsps) for r in want) > 0
+        _assert_same_results(got, want)
+
+
+@pytest.mark.parametrize("rm", [False, True], ids=["pairwise", "rm"])
+@pytest.mark.parametrize("device_seeding", [False, True],
+                         ids=["native", "device"])
+def test_farm_on_one_card_matches_jax_digest(dev, device_seeding, rm):
+    """Two aligners on cuda:0 on the inputs of
+    tests/test_torch_multidevice.py, against the digest of the JAX
+    package's results that the CPU tests there check."""
+    import test_torch_multidevice as cpu
+    from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
+    ref, query, qrc, window = cpu.inputs(rm)
+    farm = MultiDeviceAligner(device="cuda:0", num_devices=2, rm_mode=rm,
+                              device_seeding=device_seeding,
+                              **cpu.settings())
+    farm.set_ref(ref)
+    farm.set_query(query, qrc)
+    got = farm.map_chunks(cpu.chunk_work(window), depth=2)
+    assert cpu.digest(got) == cpu.JAX_SHA256[rm]
+    assert not farm.errors and not farm.dead
+
+
+def test_shards_on_one_card_match_jax_digests(dev):
+    """Four shards on cuda:0 on every case of tests/test_torch_sharded.py
+    (one and several hit batches, an RM window), against the digests of
+    the JAX package's results that the CPU tests there check."""
+    import test_torch_sharded as cpu
+    from segalign_tpu_torch.parallel.sharded import ShardedAligner
+    rc = np.array([3, 2, 1, 0, 4, 5, 6, 7], np.uint8)
+    for key, want in cpu.JAX_SHA256.items():
+        ref, query, work, kw = cpu.aligner_case(*key)
+        al = ShardedAligner(device="cuda:0", num_devices=4, **kw)
+        al.set_ref(ref)
+        al.set_query(query, rc[query[::-1]])
+        assert cpu.digest(al.map_chunks(work)) == want, key
+
+
+_NCCL_WORKER = """
+import torch
+import torch.distributed as dist
+from segalign_tpu_torch.parallel.distributed import \\
+    maybe_initialize_distributed
+host_id, num_hosts = maybe_initialize_distributed("cuda")
+assert num_hosts == 2
+assert dist.is_initialized() and dist.get_backend() == "nccl"
+assert dist.get_world_size() == 2 and dist.get_rank() == host_id
+x = torch.full((4,), host_id + 1, dtype=torch.int32, device="cuda")
+dist.all_reduce(x)
+assert x.tolist() == [3] * 4, x
+assert maybe_initialize_distributed("cuda") == (host_id, 2)
+dist.destroy_process_group()
+print(f"WORKER_OK {host_id}")
+"""
+
+
+def test_two_process_nccl_rendezvous(dev, tmp_path):
+    """Two hosts on CUDA, here two processes with a card each, join the
+    NCCL group at SEGALIGN_COORD and reduce over it. Skips on a machine
+    with one card."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "worker.py"
+    script.write_text(_NCCL_WORKER)
+    procs = []
+    for hid in range(2):
+        env = dict(os.environ, PYTHONPATH=root, SEGALIGN_NUM_HOSTS="2",
+                   SEGALIGN_HOST_ID=str(hid),
+                   SEGALIGN_COORD=f"127.0.0.1:{port}",
+                   CUDA_VISIBLE_DEVICES=str(hid), NCCL_SOCKET_IFNAME="lo")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("the NCCL workers timed out")
+        outs.append((p.returncode, out, err))
+    for hid, (rc, out, err) in enumerate(outs):
+        assert rc == 0, f"worker {hid} failed:\n{err[-2000:]}"
+        assert f"WORKER_OK {hid}" in out

@@ -429,11 +429,50 @@ def case_cli_args(tmp_path, rng):
         same(a.rm_config_from_args(na), b.rm_config_from_args(nb))
 
     def options(p: argparse.ArgumentParser):
+        # one help string is the port's own: its coordinator is
+        # torch.distributed's
         return sorted((tuple(x.option_strings), x.dest, repr(x.default),
-                       x.help) for x in p._actions)
+                       (x.help or "").replace("torch.distributed",
+                                              "jax.distributed"))
+                      for x in p._actions)
+    (coord,) = [x for x in b.build_pairwise_parser()._actions
+                if x.dest == "coordinator"]
+    assert "torch.distributed" in coord.help and "jax" not in coord.help
     assert options(a.build_pairwise_parser()) == options(
         b.build_pairwise_parser())
     assert options(a.build_rm_parser()) == options(b.build_rm_parser())
+
+
+def case_parallel_distributed(tmp_path, rng):
+    a, b = both("parallel.distributed")
+    for n in (0, 1, 7, 12):
+        ivs = [object() for _ in range(n)]
+        for num_hosts in (1, 2, 3, 5):
+            parts = []
+            for host in range(num_hosts):
+                got = b.partition_intervals(ivs, host, num_hosts)
+                assert got == a.partition_intervals(ivs, host, num_hosts)
+                parts.append(got)
+            assert sorted(map(id, sum(parts, []))) == sorted(map(id, ivs))
+
+
+def case_parallel_sharded(tmp_path, rng):
+    a, b = both("parallel.sharded")
+    table = importlib.import_module("segalign_tpu.index.seed_table")
+    sc = importlib.import_module("segalign_tpu.config").make_seed_config(
+        "12of19")
+    for n in (0, 30, 5000):
+        tables = table.build_seed_table(_genome(rng, n), 1, sc.shape_pos,
+                                        sc.size, sc.kmer_size)
+        for S in (2, 4, 16):
+            same(a.shard_seed_table(*tables, S), b.shard_seed_table(*tables,
+                                                                    S))
+    # every bucket of a small table filled, so no shard is empty
+    index = np.cumsum(rng.integers(0, 5, 64)).astype(np.int32)
+    pos = rng.integers(0, 1000, int(index[-1])).astype(np.int32)
+    for S in (2, 8, 64):
+        same(a.shard_seed_table(index, pos, S),
+             b.shard_seed_table(index, pos, S))
 
 
 def case_rm_header(tmp_path, rng):
@@ -532,7 +571,8 @@ CASES = [case_constants, case_logging_util, case_config, case_io_encode,
          case_ops_finalize, case_ops_dedup, case_native,
          case_output_segments, case_output_merge, case_output_scoring,
          case_output_gapped, case_output_native_gapped,
-         case_pipeline_manifest, case_cli_args, case_rm_header,
+         case_pipeline_manifest, case_cli_args, case_parallel_distributed,
+         case_parallel_sharded, case_rm_header,
          case_native_sources, case_bench_inputs]
 
 

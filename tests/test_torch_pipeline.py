@@ -87,7 +87,7 @@ def test_pipelined_map_chunks_matches_sequential():
     multi = MultiDeviceAligner(device="cpu", HBUF=512, **_kw(10**9))
     multi.set_ref(ref)
     multi.set_query(query, qrc)
-    al = multi.aligner
+    (al,) = multi.aligners
     seq = [al.seed_and_filter(w.chunk_start, w.chunk_end, w.rev)
            for w in work]
     seen = []
@@ -104,9 +104,16 @@ def test_pipelined_map_chunks_matches_sequential():
     assert nonzero > 0
 
 
-def test_more_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiDeviceAligner(device="cpu", num_devices=2, **_kw(10**9))
+def test_more_devices_than_the_machine_has_raises(monkeypatch):
+    """--device cuda --num_devices 2 names cuda:0 and cuda:1; on the CPU,
+    or on one card, two aligners are asked for with --device cpu or
+    cuda:0."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="this machine has 1"):
+        MultiDeviceAligner(device="cuda", num_devices=2, **_kw(10**9))
+    assert MultiDeviceAligner(device="cpu", num_devices=2,
+                              **_kw(10**9)).num_devices == 2
 
 
 def _rand_dna(rng, n):

@@ -167,11 +167,14 @@ def test_rm_cli_without_cuda_raises(rm_genome, monkeypatch):
         main([rm_genome])
 
 
-def test_sharded_table_raises(rm_genome, tmp_path):
+def test_sharded_table_matches_jax(rm_genome, jax_intervals, tmp_path):
+    """cfg.sharded_table selects the sharded aligner (two shards on the
+    CPU); tests/test_torch_sharded.py holds it to the replicated one."""
     cfg = _cfg(rm_genome)
-    cfg.sharded_table = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prm.run_repeat_masker(cfg, str(tmp_path), device="cpu")
+    cfg.sharded_table, cfg.num_devices = True, 2
+    stats = prm.run_repeat_masker(cfg, str(tmp_path), device="cpu")
+    assert _interval_files(str(tmp_path)) == jax_intervals
+    assert stats.num_hsps > 0
 
 
 def test_load_rm_arena_copy_matches(rm_genome):
