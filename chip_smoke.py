@@ -50,15 +50,25 @@ last line, and without CUDA the script fails at once:
      four shards on cuda:0: every chunk-strand's HSPs, hit and seed counts
      equal to phase 2b's, gather_rows and window_scan_wide launched; wall
      and peak device memory beside phase 2b's;
+  2e. the same slice through the sharded table across two processes
+     (scripts/_scaling_worker.py, sharded mode), two shards each, both on
+     cuda:0 over a gloo group (NCCL takes one process a card), whose
+     collectives copy through host memory: every rank's HSPs, hits and
+     seeds equal to phase 2b's, gather_rows and window_scan_wide launched
+     in each worker (the counts are per process); each rank's walls (cold,
+     warm), the share of a third run spent in the collectives, and peak
+     memory a process;
   3. the CLI: python -m segalign_tpu_torch.cli.run_segalign on a FASTA
      pair made from a fixed seed, whose segments file must hash to what
      the JAX CLI (python -m segalign_tpu.cli.run_segalign) writes for it;
   3b. the repeat-masker CLI (segalign_tpu_torch.cli.run_segalign_repeat_
      masker) on a FASTA made from a fixed seed, on both seeding routes:
      each output must hash to what the JAX RM CLI writes for it;
-  3d. the CLIs' other modes on the same files: the pairwise CLI with
-     --num_devices 2 --device cuda:0, and with --sharded_table
-     --num_devices 2 --device cuda:0, each hashing to phase 3's sha256; the
+  3d. the CLIs' other modes on the same files (the ten CLI processes of
+     phases 3, 3b and 3d run at once, each in a directory of its own):
+     the pairwise CLI with --num_devices 2 --device cuda:0, and with
+     --sharded_table --num_devices 2 --device cuda:0, each hashing to
+     phase 3's sha256; the
      RM CLI with --sharded_table --num_devices 2 hashing to phase 3b's;
      the pairwise CLI as host 0 and as host 1 of two (--num_hosts 2
      --host_id N, five intervals), whose lines are disjoint and together
@@ -71,7 +81,10 @@ last line, and without CUDA the script fails at once:
   4. the measurement scripts, in process with small repetition counts:
      exp_gather_variants.main, probe_env.main and probe_extension.main
      over every probe; any exception fails the run, and each of S1-S4's
-     launchers must be launched there;
+     launchers must be launched there; then the scaling scripts' main at
+     small sizes on cuda:0 (measure_scaling: the farm at 1 and 2 aligners,
+     two hosts' split; measure_sharded_vs_replicated), each of which
+     raises unless it prints its parity lines;
   5. the kernels as one JSON line, then the result as the last line.
 
 Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
@@ -265,28 +278,41 @@ def bound_ms(nbytes: float, ops: float = 0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def run_cli(module: str, argv: list, cwd: str, label: str, **env) -> float:
-    """Run one of the port's CLIs in a process of its own; fail unless it
-    exits 0 without the farm's retry pass. Returns its seconds."""
+def run_clis(jobs: list, d: str) -> dict:
+    """Run the port's CLIs, all at once, each in a process and a directory
+    of its own under d: jobs of (label, module, argv, env). Fails unless
+    every one exits 0 without the farm's retry pass. Returns {label:
+    (output bytes, sha256, seconds to its exit)}."""
     t0 = time.time()
-    cli = subprocess.run(
-        [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}", *argv],
-        cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT, **env),
-        capture_output=True, text=True, timeout=600)
-    if cli.returncode != 0:
-        fail(f"{label} exited {cli.returncode}:\n{cli.stderr[-3000:]}")
-    if "after device failure" in cli.stderr:
-        fail(f"{label} retried chunks after a device failure:\n"
-             f"{cli.stderr[-3000:]}")
-    return time.time() - t0
-
-
-def read_output(path: str):
-    """(bytes, sha256) of a CLI's output file; removes the file."""
-    with open(path, "rb") as f:
-        data = f.read()
-    os.remove(path)
-    return data, hashlib.sha256(data).hexdigest()
+    procs = []
+    try:
+        for i, (label, module, argv, env) in enumerate(jobs):
+            cwd = os.path.join(d, f"cli_{i}")
+            shutil.rmtree(cwd, ignore_errors=True)
+            os.makedirs(cwd)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}",
+                 *argv, "--output", os.path.join(cwd, "out.txt")], cwd=cwd,
+                env=dict(os.environ, PYTHONPATH=ROOT, **env),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        got = {}
+        for (label, *_), p in zip(jobs, procs):
+            _, err = p.communicate(timeout=max(600 - (time.time() - t0), 1))
+            secs = time.time() - t0
+            if p.returncode != 0:
+                fail(f"{label} exited {p.returncode}:\n{err[-3000:]}")
+            if "after device failure" in err:
+                fail(f"{label} retried chunks after a device failure:\n"
+                     f"{err[-3000:]}")
+            with open(p.args[-1], "rb") as f:
+                data = f.read()
+            got[label] = (data, hashlib.sha256(data).hexdigest(), secs)
+        return got
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 class Kernels:
@@ -345,7 +371,8 @@ def main():
     from segalign_tpu_torch.ops import gather_variants as gv
     from segalign_tpu_torch.ops.probe import scale2, scale2_plain
     from segalign_tpu_torch.scripts import exp_gather_variants, probe_env, \
-        probe_extension
+        probe_extension, measure_scaling, measure_sharded_vs_replicated
+    from segalign_tpu_torch.scripts._scaling_worker import run_workers
     from segalign_tpu_torch.ops.extend3 import init_state
     from segalign_tpu_torch.ops.window_scan import window_scan, \
         window_scan_plain
@@ -354,6 +381,7 @@ def main():
     from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
     from segalign_tpu_torch.parallel.sharded import ShardedAligner
     from segalign_tpu_torch.pipeline.device import (CONT_W, FIRST_W, PAD,
+                                                    ChunkResult,
                                                     DeviceAligner)
     from segalign_tpu_torch.pipeline.repeat_masker import run_repeat_masker
     from segalign_tpu_torch import bench_inputs
@@ -823,67 +851,95 @@ def main():
     for k in ("gather_rows", "window_scan_wide"):
         if launches_s[k] == 0:
             fail(f"{k} was not launched by the sharded aligner")
-    del shd, results_s, results_d
+    del shd, results_s
     torch.cuda.empty_cache()
 
+    # ---- phase 2e: the sharded table across two processes on the one card
+    print("phase 2e: ShardedAligner(group=...) across two processes x two "
+          "shards on cuda:0", flush=True)
+    t0 = time.time()
+    outs = run_workers(
+        dict(mode="sharded", ref=ref, query=query, shards=2, runs=2,
+             kw=shared_kw, work=[(w.chunk_start, w.chunk_end, w.rev,
+                                  w.window) for w in work]),
+        2, "cuda:0", os.path.join(ROOT, "build", "chip_smoke_2e"))
+    dt_e = time.time() - t0
+    for o in outs:
+        same_results([ChunkResult(*t) for t in o["results"]], results_d,
+                     f"rank {o['rank']} of the sharded table across two "
+                     f"processes differs from the device route")
+        by_slice[f"sharded_2proc_rank{o['rank']}"] = o["launches"]
+        for k, n in o["launches"].items():
+            if n == 0:
+                fail(f"{k} was not launched by rank {o['rank']} of two")
+    o0 = outs[0]
+    print(f"sharded table, 2 processes x 2 shards ({o0['backend']}"
+          f"{', through host memory' if o0['host_staged'] else ''}; S = "
+          f"{o0['shards']}): every rank's {EXPECTED_HSPS} HSPs, hits and "
+          f"seeds equal to the device route's; walls (cold, warm) "
+          f"{[[round(w, 3) for w in o['walls']] for o in outs]} s (4 shards "
+          f"in one process {dt_s:.3f} s), collectives "
+          f"{[round(o['comm'][0], 3) for o in outs]} s of a third run's "
+          f"{[round(o['comm'][1], 3) for o in outs]} s (by function "
+          f"{[{k: round(v, 3) for k, v in o['comm'][2].items()}
+              for o in outs]}), start-up "
+          f"{[round(o['t_init'], 3) for o in outs]} s, set-up "
+          f"{[round(o['t_setup'], 3) for o in outs]} s, max_memory_allocated "
+          f"{[round(o['peak_bytes'] / 2**30, 2) for o in outs]} GiB a "
+          f"process (4 shards in one process: see phase 2d), launches "
+          f"{[o['launches'] for o in outs]}; spawn to join {dt_e:.1f} s "
+          f"[{card}]", flush=True)
+    del outs, results_d
+
     # ---- phase 3: the CLI
-    print("phase 3: the CLI on a fixed FASTA pair", flush=True)
+    # ---- phases 3, 3b and 3d: the CLIs, ten processes at once
+    print("phases 3, 3b, 3d: the CLI on a fixed FASTA pair, the RM CLI on a "
+          "fixed FASTA on both seeding routes, the CLIs with two devices, "
+          "the sharded table, two hosts and the native gapped stage; ten "
+          "processes at once", flush=True)
     d = os.path.join(ROOT, "build", "chip_smoke_cli")
     os.makedirs(d, exist_ok=True)
     write_cli_pair(d)
-    pair = [os.path.join(d, "ref.fa"), os.path.join(d, "query.fa")]
-    out = os.path.join(d, "out.txt")
-    if os.path.exists(out):
-        os.remove(out)
-
-    def pairwise_cli(label, *argv, want=None):
-        """The pairwise CLI's output for the pair; its sha256 held to
-        `want` when that is given."""
-        secs = run_cli("run_segalign", [*pair, "--output", out, *argv], d,
-                       label)
-        data, digest = read_output(out)
-        print(f"{label}: {data.count(b'\n')} lines in {secs:.1f} s, sha256 "
-              f"{digest}", flush=True)
-        if want is not None and digest != want:
-            fail(f"{label}: output sha256 {digest} != {want}")
-        return data
-
-    pairwise_cli("cli", "--nogapped", "--markend", want=CLI_SHA256)
-
-    # ---- phase 3b: the RM CLI on both routes
-    print("phase 3b: the RM CLI on a fixed FASTA, both seeding routes",
-          flush=True)
     write_rm_genome(d)
-
-    def rm_cli(label, *argv, **env):
-        secs = run_cli("run_segalign_repeat_masker",
-                       [os.path.join(d, "seq.fa"), "--output", out,
-                        "--markend", *argv], d, label, **env)
-        data, digest = read_output(out)
-        n_iv = data.count(b"\n") - 2   # less the header and the end mark
-        print(f"{label}: {n_iv} intervals in {secs:.1f} s, sha256 {digest}",
-              flush=True)
-        if digest != RM_CLI_SHA256:
-            fail(f"{label}: output sha256 {digest} != {RM_CLI_SHA256}")
-
-    rm_cli("rm cli (native route)")
-    rm_cli("rm cli (device route)", SEGALIGN_DEVICE_SEEDING="1")
-
-    # ---- phase 3d: the CLIs' other modes
-    print("phase 3d: the CLIs with two devices, the sharded table, two "
-          "hosts and the native gapped stage", flush=True)
+    pair = [os.path.join(d, "ref.fa"), os.path.join(d, "query.fa")]
+    rm_in = [os.path.join(d, "seq.fa"), "--markend"]
     one_card = ["--num_devices", "2", "--device", "cuda:0"]
-    pairwise_cli("cli, two aligners on cuda:0", "--nogapped", "--markend",
-                 *one_card, want=CLI_SHA256)
-    pairwise_cli("cli, sharded table, two shards on cuda:0", "--nogapped",
-                 "--markend", "--sharded_table", *one_card, want=CLI_SHA256)
-    rm_cli("rm cli, sharded table, two shards on cuda:0", "--sharded_table",
-           *one_card)
     # five intervals, so that each of two hosts has some
-    split = ["--nogapped", "--lastz_interval_size", "30000"]
-    single = pairwise_cli("cli, one host", *split).splitlines()
-    hosts = [pairwise_cli(f"cli, host {h} of 2", *split, "--num_hosts", "2",
-                          "--host_id", str(h)).splitlines() for h in (0, 1)]
+    split = [*pair, "--nogapped", "--lastz_interval_size", "30000"]
+    pw, rm = "run_segalign", "run_segalign_repeat_masker"
+    want = {"cli": CLI_SHA256,
+            "rm cli (native route)": RM_CLI_SHA256,
+            "rm cli (device route)": RM_CLI_SHA256,
+            "cli, two aligners on cuda:0": CLI_SHA256,
+            "cli, sharded table, two shards on cuda:0": CLI_SHA256,
+            "rm cli, sharded table, two shards on cuda:0": RM_CLI_SHA256,
+            "cli, one host": None, "cli, host 0 of 2": None,
+            "cli, host 1 of 2": None,
+            "cli, native gapped stage, maf-": GAPPED_CLI_SHA256}
+    args = [(pw, [*pair, "--nogapped", "--markend"], {}),
+            (rm, rm_in, {}),
+            (rm, rm_in, {"SEGALIGN_DEVICE_SEEDING": "1"}),
+            (pw, [*pair, "--nogapped", "--markend", *one_card], {}),
+            (pw, [*pair, "--nogapped", "--markend", "--sharded_table",
+                  *one_card], {}),
+            (rm, [*rm_in, "--sharded_table", *one_card], {}),
+            (pw, split, {}),
+            (pw, [*split, "--num_hosts", "2", "--host_id", "0"], {}),
+            (pw, [*split, "--num_hosts", "2", "--host_id", "1"], {}),
+            (pw, [*pair, "--gapped_mode", "native", "--format", "maf-"], {})]
+    t0 = time.time()
+    clis = run_clis([(label, *a) for label, a in zip(want, args)], d)
+    for label, (data, digest, secs) in clis.items():
+        what = (f"{data.count(b'\n') - 2} intervals"   # less header, mark
+                if label.startswith("rm") else
+                f"{data.count(b'\n')} lines")
+        print(f"{label}: {what}, exited after {secs:.1f} s, sha256 "
+              f"{digest}", flush=True)
+        if want[label] is not None and digest != want[label]:
+            fail(f"{label}: output sha256 {digest} != {want[label]}")
+    print(f"ten CLI processes: {time.time() - t0:.1f} s", flush=True)
+    single = clis["cli, one host"][0].splitlines()
+    hosts = [clis[f"cli, host {h} of 2"][0].splitlines() for h in (0, 1)]
     if not hosts[0] or not hosts[1] or set(hosts[0]) & set(hosts[1]):
         fail(f"two hosts: {len(hosts[0])} and {len(hosts[1])} lines, "
              f"{len(set(hosts[0]) & set(hosts[1]))} in both")
@@ -891,8 +947,6 @@ def main():
         fail("two hosts' lines together are not the one-host run's")
     print(f"two hosts: {len(hosts[0])} + {len(hosts[1])} disjoint lines, "
           f"together the one-host run's {len(single)}", flush=True)
-    pairwise_cli("cli, native gapped stage, maf-", "--gapped_mode", "native",
-                 "--format", "maf-", want=GAPPED_CLI_SHA256)
 
     # ---- phase 3c: the repeat masker at real size, both routes
     print("phase 3c: run_repeat_masker on the repeat-1x reference",
@@ -961,6 +1015,12 @@ def main():
     for k in script_kernels:
         if launches[k] == 0:
             fail(f"{k} was not launched by the measurement scripts")
+    t0 = time.time()
+    measure_scaling.main(["--device", "cuda:0", "--n", "100000",
+                          "--counts", "1,2"])
+    measure_sharded_vs_replicated.main(["--device", "cuda:0", "--n",
+                                        "150000", "--chunk", "75000"])
+    print(f"scaling scripts: {time.time() - t0:.1f} s [{card}]", flush=True)
 
     # ---- phase 5: results
     rows = []

@@ -120,11 +120,12 @@ def aligner_settings(device) -> dict:
                 device=device)
 
 
-def chunk_work(query) -> list:
-    """Both strands of every CHUNK of the query, in map_chunks' order."""
+def chunk_work(query, chunk: int = CHUNK) -> list:
+    """Both strands of every `chunk` bases of the query, in map_chunks'
+    order."""
     q_len = len(query) - make_seed_config(SEED).size
-    return [ChunkWork(cs, min(cs + CHUNK, q_len), rev)
-            for cs in range(0, q_len, CHUNK) for rev in (False, True)]
+    return [ChunkWork(cs, min(cs + chunk, q_len), rev)
+            for cs in range(0, q_len, chunk) for rev in (False, True)]
 
 
 def write_codes_fasta(path: str, codes, name: str = "ref") -> None:

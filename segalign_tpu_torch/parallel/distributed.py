@@ -10,7 +10,15 @@ Launch: run the same command on every host with
   SEGALIGN_NUM_HOSTS=N SEGALIGN_HOST_ID=i [SEGALIGN_COORD=ip:port]
 or the CLI's --num_hosts / --host_id / --coordinator. A coordinator is
 needed only by code that communicates between the hosts; when one is
-given, the hosts join one torch.distributed process group.
+given, the hosts join one torch.distributed process group, which
+process_group() returns. The CLIs' split uses none. A caller that spreads
+the sharded seed table over the hosts passes it on explicitly:
+
+    maybe_initialize_distributed(device)
+    ShardedAligner(device=..., group=process_group(), ...)
+
+and then every host calls the aligner with the same blocks and chunks
+(parallel/sharded.py), not its own slice of the intervals.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import os
 from typing import List
 
 
-def maybe_initialize_distributed(device="cpu") -> tuple[int, int]:
+def maybe_initialize_distributed(device) -> tuple[int, int]:
     """(host_id, num_hosts) from the SEGALIGN_* environment; (0, 1) for a
     single host.
 
@@ -39,6 +47,16 @@ def maybe_initialize_distributed(device="cpu") -> tuple[int, int]:
                 backend, init_method=f"tcp://{coord}", rank=host_id,
                 world_size=num_hosts)
     return host_id, num_hosts
+
+
+def process_group():
+    """The torch.distributed group that maybe_initialize_distributed joined;
+    None when this process is alone."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
 
 
 def partition_intervals(intervals: List, host_id: int, num_hosts: int):

@@ -28,9 +28,22 @@ Per chunk-strand:
 
 The result equals DeviceAligner's for every chunk-strand. Shards are
 logical: `--device cpu` or `cuda:K` holds them all, so S = 2 or 4 runs on
-one card and on the CPU; `--device cuda` gives each a card of its own. Within one process `exchange` and
-`gather_to` move tensors between the shards' devices; across processes
-they would be torch.distributed's all_to_all and all_gather.
+one card and on the CPU; `--device cuda` gives each a card of its own.
+
+With a torch.distributed process group the shards spread over its ranks:
+rank r holds the S_local shards of its own devices, global shards
+r * S_local .. (r + 1) * S_local - 1 of S = world * S_local, and keeps on
+its devices only their slices of the table (every rank builds the whole
+table on the host). `exchange` becomes the group's all_to_all_single and
+`gather_to` its all_gather_into_tensor: the seeds go to their owners' ranks
+and the counts back, every rank gathers the global slot counts, and every
+rank gathers all candidates and returns the same ChunkResult (the JAX
+program's replicated outputs). The ranks run one program: each must call
+set_ref, set_query and map_chunks with the same arguments, in the same
+order, and every early exit is decided on a value that came through a
+collective, so no rank leaves while the others wait in one. Over gloo the
+collectives move host tensors (a shard on a card copies through host
+memory); over NCCL they move the tensors on the card.
 
 What the JAX module carries for XLA's static shapes has no counterpart:
 the fixed capacities of seeds, hits, candidates and batch limits, their
@@ -44,6 +57,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..index.seed_table import build_seed_table
 from ..ops.extend3 import extend_hits_windowed
@@ -81,32 +95,110 @@ def shard_seed_table(index_table: np.ndarray, pos_table: np.ndarray,
     return index_shards, pos_shards
 
 
-def shard_devices(device, num_devices: int = -1) -> List[torch.device]:
-    """The device of each shard: the first S of the farm's devices for the
-    same request (parallel/multi.py resolve_devices), S the largest power
-    of two not above their number."""
+def shard_devices(device, num_devices: int = -1,
+                  world: int = 1) -> List[torch.device]:
+    """The device of each of a process's shards: the first S_local of the
+    farm's devices for the same request (parallel/multi.py
+    resolve_devices), S_local the largest power of two not above their
+    number. world: the processes of the group, each with as many shards;
+    together they need two shards at least."""
     pool = resolve_devices(device, num_devices)
     S = 1 << (len(pool).bit_length() - 1)
-    if S < 2:
+    if S * world < 2:
         raise ValueError("--sharded_table needs >= 2 devices")
     return pool[:S]
 
 
+def _rank_world(group):
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def comm_device(group, device) -> torch.device:
+    """Where a collective's tensors lie: host memory for gloo, the shard's
+    card for NCCL."""
+    if dist.get_backend(group) == "gloo":
+        return torch.device("cpu")
+    return torch.device(device)
+
+
 def exchange(send: List[torch.Tensor], sizes: List[List[int]],
-             devices: List[torch.device]) -> List[torch.Tensor]:
-    """The all_to_all between the shards of one process.
+             devices: List[torch.device], group=None) -> List[torch.Tensor]:
+    """The all_to_all between the shards.
 
-    send[s] is a (rows, n) tensor on shard s's device whose columns are
-    grouped by destination, sizes[s][d] of them for shard d. Returns
-    recv[d] on shard d's device: the groups sent to d, in source order."""
-    parts = [torch.split(t, sz, dim=1) for t, sz in zip(send, sizes)]
-    return [torch.cat([p[d].to(dev) for p in parts], dim=1)
-            for d, dev in enumerate(devices)]
+    sizes is the S x S matrix of the whole group: sizes[s][d] columns go
+    from global shard s to global shard d. send[l] is a (rows, n) tensor on
+    this process's l-th shard's device (global shard first + l, first =
+    rank * len(send)) whose columns are grouped by destination, in global
+    shard order. Returns recv[m] on the m-th shard's device: the groups
+    sent to it, in global source order. Without a group this process holds
+    every shard; with one, the columns for each rank go as contiguous
+    (n, rows) rows through all_to_all_single with uneven splits, and are
+    split again by (source shard, destination shard)."""
+    if group is None:
+        parts = [torch.split(t, sz, dim=1) for t, sz in zip(send, sizes)]
+        return [torch.cat([p[d].to(dev) for p in parts], dim=1)
+                for d, dev in enumerate(devices)]
+    rank, world = _rank_world(group)
+    L = len(send)
+    first = rank * L
+    comm = comm_device(group, devices[0])
+    # to rank q, source-major: each local shard's columns for q's shards
+    # are one contiguous slice, since columns are grouped by destination
+    pieces, in_splits = [], []
+    for q in range(world):
+        n_q = 0
+        for l in range(L):
+            row = sizes[first + l]
+            lo = sum(row[:q * L])
+            hi = lo + sum(row[q * L:(q + 1) * L])
+            pieces.append(send[l][:, lo:hi].T.to(comm))
+            n_q += hi - lo
+        in_splits.append(n_q)
+    x = torch.cat(pieces).contiguous()
+    # from rank p, in its order: source shard p * L + l, then destination
+    # shard first + m
+    blocks = [[sizes[p * L + l][first + m] for l in range(L)
+               for m in range(L)] for p in range(world)]
+    y = torch.empty((sum(map(sum, blocks)), x.shape[1]), dtype=x.dtype,
+                    device=comm)
+    dist.all_to_all_single(y, x, [sum(b) for b in blocks], in_splits,
+                           group=group)
+    recv: List[List[torch.Tensor]] = [[] for _ in range(L)]
+    for k, part in enumerate(torch.split(y, sum(blocks, []))):
+        recv[k % L].append(part)
+    return [torch.cat(r).T.contiguous().to(dev)
+            for r, dev in zip(recv, devices)]
 
 
-def gather_to(parts: List[torch.Tensor], device) -> torch.Tensor:
-    """The all_gather: the shards' tensors end to end on one device."""
-    return torch.cat([p.to(device) for p in parts])
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's t (the same shape on every rank) end to end."""
+    _, world = _rank_world(group)
+    out = torch.empty((world * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def gather_to(parts: List[torch.Tensor], device,
+              group=None) -> torch.Tensor:
+    """The all_gather: the shards' tensors end to end on `device`, in global
+    shard order. Across processes every rank gets the same tensor: the row
+    counts go first, then the rows padded to the largest, trimmed after."""
+    if group is None:
+        return torch.cat([p.to(device) for p in parts])
+    comm = comm_device(group, parts[0].device)
+    local = torch.cat([p.to(comm) for p in parts])
+    n = _all_gather(torch.tensor([local.shape[0]], dtype=torch.int64,
+                                 device=comm), group).tolist()
+    width = max(n)
+    padded = torch.zeros((width, *local.shape[1:]), dtype=local.dtype,
+                         device=comm)
+    padded[:local.shape[0]] = local
+    out = _all_gather(padded, group)
+    return torch.cat([out[r * width:r * width + k]
+                      for r, k in enumerate(n)]).to(device)
 
 
 def finalize_sharded(rows: np.ndarray, *, hspthresh: int, noentropy: bool,
@@ -133,14 +225,28 @@ def finalize_sharded(rows: np.ndarray, *, hspthresh: int, noentropy: bool,
 class ShardedAligner:
     """MultiDeviceAligner's interface over the sharded seed table (the
     CLIs' --sharded_table). It has one route and seeds on the device: the
-    host seeder reads the whole table."""
+    host seeder reads the whole table.
+
+    group: None keeps every shard in this process; a torch.distributed
+    process group spreads them over its ranks, `num_devices` shards a rank
+    (shard_devices), S = world size x that, a power of two. Every rank of
+    the group must then call set_ref, set_query and map_chunks with the
+    same arguments in the same order, and each gets the same results."""
 
     def __init__(self, *, device, num_devices: int = -1, shape_pos,
                  seed_size, transition, step, sub_mat, xdrop, hspthresh,
                  noentropy, chunk_size, max_hits: int = DEFAULT_MAX_HITS,
-                 HBUF: int = 1 << 17, rm_mode: bool = False):
-        self.devices = shard_devices(device, num_devices)
-        self.S = S = len(self.devices)
+                 HBUF: int = 1 << 17, rm_mode: bool = False, group=None):
+        rank, world = _rank_world(group)
+        self.group = group
+        self.devices = shard_devices(device, num_devices, world)
+        # this process's shards are global shards first .. first + S_local
+        self.first = rank * len(self.devices)
+        self.S = S = world * len(self.devices)
+        if S & (S - 1):
+            raise ValueError(f"--sharded_table needs a power of two of "
+                             f"shards; {world} processes x "
+                             f"{len(self.devices)} make {S}")
         self.shape_pos = tuple(shape_pos)
         self.kmer_size = len(shape_pos)
         self.seed_size = seed_size
@@ -161,9 +267,14 @@ class ShardedAligner:
         self._shared = {d: {"sub": sub.to(d)} for d in set(self.devices)}
         self.ref_len = 0
         self.q_len = 0
+        # whether the collectives copy a card's tensors through host memory
+        self.host_staged = group is not None and any(
+            d.type == "cuda" and comm_device(group, d).type == "cpu"
+            for d in self.devices)
 
     @property
     def num_devices(self) -> int:
+        """The shards of the whole group."""
         return self.S
 
     def _replicate(self, name: str, codes: np.ndarray, right_pad: int = 0):
@@ -177,14 +288,15 @@ class ShardedAligner:
             tables = build_seed_table(ref_codes, self.step, self.shape_pos,
                                       self.seed_size, self.kmer_size)
         ish, psh = shard_seed_table(*tables, self.S)
-        self.index_shards = [torch.from_numpy(ish[s]).to(d)
-                             for s, d in enumerate(self.devices)]
+        mine = range(self.first, self.first + len(self.devices))
+        self.index_shards = [torch.from_numpy(ish[g]).to(d)
+                             for g, d in zip(mine, self.devices)]
         # a shard's own positions, without the padding to the widest shard
         # (one element at least: expand_hits indexes the table even with no
         # hits)
         self.pos_shards = [
-            torch.from_numpy(psh[s, :max(int(ish[s, -1]), 1)].copy()).to(d)
-            for s, d in enumerate(self.devices)]
+            torch.from_numpy(psh[g, :max(int(ish[g, -1]), 1)].copy()).to(d)
+            for g, d in zip(mine, self.devices)]
         self._replicate("ref", ref_codes)
 
     def set_query(self, fw_codes: np.ndarray, rc_codes: np.ndarray):
@@ -207,13 +319,14 @@ class ShardedAligner:
         """The HSPs of one chunk-strand. window: the RM window (lo, hi) of
         reference positions a hit must lie in, or None."""
         S, loc, devices = self.S, self.chunk_loc, self.devices
+        group = self.group
         qname = "q_rc" if rev else "q_fw"
         empty = np.zeros((0, 4), np.int64)
         nloc = loc * (1 + self.kmer_size if self.transition else 1)
 
         # 1-2. each shard's seeds, grouped by owner, with their global slots
         send, sizes, orders = [], [], []
-        for s, dev in enumerate(devices):
+        for s, dev in enumerate(devices, self.first):
             with on_device(dev):
                 my_len = min(max(chunk_end - chunk_start - s * loc, 0), loc)
                 kmers, qpos, valid = chunk_kmers(
@@ -230,10 +343,17 @@ class ShardedAligner:
                     (s * nloc + order).to(torch.int32)]))
                 sizes.append(counts)
                 orders.append(order)
+        if group is not None:
+            # the S x S size matrix of the whole group: the splits of both
+            # exchanges, and num_seeds the same on every rank
+            sizes = _all_gather(torch.tensor(sizes, dtype=torch.int64,
+                                             device=comm_device(
+                                                 group, devices[0])),
+                                group).tolist()
         num_seeds = sum(map(sum, sizes))
         if num_seeds == 0:
             return ChunkResult(empty, 0, 0)
-        recv = exchange(send, sizes, devices)
+        recv = exchange(send, sizes, devices, group)
 
         # 3. the owners' hit counts from their slices of the index table
         local = []
@@ -247,14 +367,14 @@ class ShardedAligner:
         # 4. the counts back in slot order, their global cumsum and the
         # batch limits of the replicated device route
         back = exchange([c[None] for _, c, _, _ in local],
-                        [list(col) for col in zip(*sizes)], devices)
+                        [list(col) for col in zip(*sizes)], devices, group)
         slot_counts = []
         for s, dev in enumerate(devices):
             with on_device(dev):
                 c = torch.zeros(nloc, dtype=torch.int32, device=dev)
                 c[orders[s]] = back[s][0]
                 slot_counts.append(c)
-        cum = torch.cumsum(gather_to(slot_counts, devices[0]), 0,
+        cum = torch.cumsum(gather_to(slot_counts, devices[0], group), 0,
                            dtype=torch.int32)
         num_hits = int(cum[-1])
         if num_hits == 0:
@@ -263,7 +383,8 @@ class ShardedAligner:
         limit_slots = torch.tensor(limit_slots, dtype=torch.int32)
 
         # 5-6. expansion and extension on each shard; candidates to the host
-        rows = []
+        # (of every rank: a rank without rows joins with none)
+        rows = [torch.zeros((0, 9), dtype=torch.int64, device=devices[0])]
         for d, dev in enumerate(devices):
             starts, counts, rq, rslot = local[d]
             if counts.numel() == 0:
@@ -292,9 +413,9 @@ class ShardedAligner:
                         [res[k][sel, None]
                          for k in ("rs", "qs", "length", "total")]
                         + [res["counts"][sel], batch[:, None]],
-                        dim=1).cpu().numpy())
+                        dim=1).long())
         hsps = finalize_sharded(
-            np.concatenate(rows).astype(np.int64), hspthresh=self.hspthresh,
+            gather_to(rows, "cpu", group).numpy(), hspthresh=self.hspthresh,
             noentropy=self.noentropy, rm_mode=self.rm_mode, rev=rev,
             ref_len=self.ref_len)
         return ChunkResult(hsps, num_hits, num_seeds)

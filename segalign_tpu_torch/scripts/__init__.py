@@ -1,15 +1,22 @@
 """The port's measurement scripts: the counterparts of scripts/
-exp_gather_variants.py, probe_env.py and probe_extension.py, and one of
-the port's own (the slices' walls and kernel time):
+exp_gather_variants.py, probe_env.py, probe_extension.py,
+measure_scaling.py (with _scaling_worker.py) and
+measure_sharded_vs_replicated.py, and two of the port's own (the slices'
+walls and kernel time; the pair and both CLIs on several cards):
 
     python -m segalign_tpu_torch.scripts.exp_gather_variants [inner]
     python -m segalign_tpu_torch.scripts.probe_env [probe ...]
     python -m segalign_tpu_torch.scripts.probe_extension [probe ...]
     python -m segalign_tpu_torch.scripts.slice_walls [runs]
+    python -m segalign_tpu_torch.scripts.measure_scaling [--device ...]
+    python -m segalign_tpu_torch.scripts.measure_sharded_vs_replicated
+    python -m segalign_tpu_torch.scripts.several_cards
 
-Each measures the CUDA device and nothing else: without one it exits at
-once with a message, and no probe runs on the CPU in its place. No script
-catches an exception. Every run prints the card's name and power limit
+Each measures the CUDA device: without one it exits at once with a
+message, and no probe runs on the CPU in its place. Only the last three
+run on the CPU as well, when `--device cpu` asks for it by name (their
+tests' small runs, whose times are the CPU's). No script catches an
+exception. Every run prints the card's name and power limit
 first, so that each time it prints stands beside them. Importing these
 modules touches no device.
 """

@@ -928,3 +928,55 @@ def test_two_process_nccl_rendezvous(dev, tmp_path):
     for hid, (rc, out, err) in enumerate(outs):
         assert rc == 0, f"worker {hid} failed:\n{err[-2000:]}"
         assert f"WORKER_OK {hid}" in out
+
+
+def test_two_processes_on_one_card_match_jax_digests(dev, tmp_path):
+    """Two processes with two shards each on cuda:0, over a gloo group
+    (NCCL takes one process a card; the collectives copy through host
+    memory), on every case of tests/test_torch_sharded.py: each rank's
+    results hash to the JAX package's digest, the short chunk-strands in
+    which one rank seeds nothing equal four shards in one process on the
+    card, and each worker launched K2 and K5."""
+    import test_torch_distributed_sharded as cpu
+    from test_torch_sharded import JAX_SHA256
+    got, job = cpu.run_two_ranks(tmp_path, "cuda:0")
+    _, ref, query, work, kw = next(c for c in job["cases"]
+                                   if c[0] == "short")
+    want = cpu.in_process(ref, query, work, kw, "cuda:0")
+    for rank in range(2):
+        for key, digest in JAX_SHA256.items():
+            assert cpu.digest([cpu.R(t) for t in got[rank]["cases"][key]]) \
+                == digest, (rank, key)
+        _assert_same_results([cpu.R(t) for t in got[rank]["cases"]["short"]],
+                             want)
+        assert got[rank]["host_staged"]
+        assert min(got[rank]["launches"]) > 0
+
+
+def test_four_processes_over_nccl(dev, tmp_path):
+    """Four processes, a card and a shard each, over NCCL on the 0.2 Mbp
+    pair: every rank returns one card's arrays. Skips under four cards."""
+    from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
+    from segalign_tpu_torch.scripts._scaling_worker import run_workers
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    ref, query, qrc, kw, work = _small_pair_work()
+    one = MultiDeviceAligner(num_devices=1, **kw)
+    one.set_ref(ref)
+    one.set_query(query, qrc)
+    want = one.map_chunks(work)
+    assert sum(len(r.hsps) for r in want) > 0
+    outs = run_workers(
+        dict(mode="sharded", ref=ref, query=query, shards=1, runs=1,
+             kw={k: v for k, v in kw.items() if k != "device"},
+             work=[(w.chunk_start, w.chunk_end, w.rev, w.window)
+                   for w in work]), 4, "cuda", str(tmp_path), timeout=400)
+    for o in outs:
+        assert (o["backend"], o["shards"], o["host_staged"]) == \
+            ("nccl", 4, False)
+        got = [(r.hsps, r.num_hits, r.num_seeds) for r in want]
+        assert len(o["results"]) == len(got)
+        for a, b in zip(o["results"], got):
+            assert a[1:] == b[1:]
+            np.testing.assert_array_equal(a[0], b[0])
+        assert min(o["launches"].values()) > 0

@@ -146,13 +146,16 @@ _WORKER = textwrap.dedent("""
     import torch
     import torch.distributed as dist
     from segalign_tpu_torch.parallel.distributed import (
-        maybe_initialize_distributed, partition_intervals)
+        maybe_initialize_distributed, partition_intervals, process_group)
+    assert process_group() is None
     host_id, num_hosts = maybe_initialize_distributed("cpu")
     assert num_hosts == 2
     assert dist.is_initialized() and dist.get_backend() == "gloo"
     assert dist.get_world_size() == 2 and dist.get_rank() == host_id
+    group = process_group()
+    assert group is not None and dist.get_world_size(group) == 2
     x = torch.full((4,), host_id + 1, dtype=torch.int32)
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     assert x.tolist() == [3] * 4, x
     # a second call joins nothing anew
     assert maybe_initialize_distributed("cpu") == (host_id, 2)
@@ -194,17 +197,21 @@ def test_two_process_distributed(tmp_path):
 
 def test_single_host_joins_no_group(monkeypatch):
     import torch.distributed as dist
-    from segalign_tpu_torch.parallel.distributed import \
-        maybe_initialize_distributed
+    from segalign_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed, process_group)
     for k in ("SEGALIGN_NUM_HOSTS", "SEGALIGN_HOST_ID", "SEGALIGN_COORD"):
         monkeypatch.delenv(k, raising=False)
-    assert maybe_initialize_distributed() == (0, 1)
+    assert maybe_initialize_distributed("cpu") == (0, 1)
     # several hosts without a coordinator: the replicated mode, no group
     monkeypatch.setenv("SEGALIGN_NUM_HOSTS", "3")
     monkeypatch.setenv("SEGALIGN_HOST_ID", "2")
-    assert maybe_initialize_distributed() == (2, 3)
+    assert maybe_initialize_distributed("cuda") == (2, 3)
     # a coordinator with one host is ignored
     monkeypatch.setenv("SEGALIGN_NUM_HOSTS", "1")
     monkeypatch.setenv("SEGALIGN_COORD", "127.0.0.1:1")
-    assert maybe_initialize_distributed() == (2, 1)
+    assert maybe_initialize_distributed("cpu") == (2, 1)
     assert not dist.is_initialized()
+    assert process_group() is None
+    # the device is named by every caller
+    with pytest.raises(TypeError):
+        maybe_initialize_distributed()
