@@ -20,7 +20,11 @@ last line, and without CUDA the script fails at once:
      PyTorch call computes the same function, that call's time
      (library_ms: an advanced index for the gathers, x * 2 for scale2;
      the port never calls it);
-     K3 (gather_rows_tile) also on starts that do not cluster (every row
+     K1 (first_scan) and K3 (gather_rows_tile) also at the narrower first
+     window the benchmark's engine parity runs, W = 256 (K1 on 2^17 rows,
+     counts off and on; K3 at 2W = 512 on the query-sorted and clustered
+     starts), timed into their rows' "variants";
+     K3 also on starts that do not cluster (every row
      reads directly), and, checked only, on tiles whose span is exactly
      T x 128 bytes, one byte under and one over, on starts the clamp
      moves, on a view one byte off a 16-byte boundary and at W = 2048; S1
@@ -85,6 +89,17 @@ last line, and without CUDA the script fails at once:
      small sizes on cuda:0 (measure_scaling: the farm at 1 and 2 aligners,
      two hosts' split; measure_sharded_vs_replicated), each of which
      raises unless it prints its parity lines;
+  4b. the benchmark: python -m segalign_tpu_torch.bench --device cuda in a
+     process of its own with the default settings (no BENCH_* or
+     SEGALIGN_* variable), which must give repeat-1x's 8351 HSPs with
+     phase 2's seeds and hits in every pass, the JAX package's seeds, hits
+     and HSPs on the density sweep and legacy-planted (SWEEP_COUNTS),
+     cold and steady, the engine parity identical:row+roww256:79hsps, a
+     gapped stage of 8351 segments, 8351 accepted, a serial breakdown
+     that covers at least 80% of its wall, K1-K4 launched in every pass
+     (K1 and K3 also at W = 256) and a last line with exactly the JAX
+     bench's keys; each pass's Mbp/s, peak memory and launches and the
+     breakdown's stages are printed;
   5. the kernels as one JSON line, then the result as the last line.
 
 Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
@@ -98,6 +113,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -119,6 +135,18 @@ GAPPED_CLI_SHA256 = ("2a6c4edba60baf6d41efdef1f191548a"
                      "b3f3d284e2340b3dd1a5a1d338f2e9a8")
 # genome length of phase 3c (the repeat-1x reference, not cut)
 RM_REAL_LEN = 4_000_000
+# seeds, hits and HSPs of the JAX package's bench.py on the density sweep
+# (2 Mbp) and legacy-planted (4 Mbp): device-independent integers
+SWEEP_COUNTS = {"repeat-0.5x": (51639822, 6188443, 296),
+                "repeat-4x": (51577084, 8997404, 20715),
+                "legacy-planted": (103872054, 24838300, 33)}
+# the engine parity of the JAX bench on the repeat-1x pair
+PARITY = "identical:row+roww256:79hsps"
+# the keys of the JAX bench's last line
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "cold_s", "densities",
+              "engine_parity", "kernel_fraction", "breakdown",
+              "e2e_overlapped_mbps", "legacy_planted_mbps"}
+BENCH_TIMEOUT = 600
 
 
 def fail(msg: str):
@@ -315,6 +343,65 @@ def run_clis(jobs: list, d: str) -> dict:
                 p.wait()
 
 
+def run_bench() -> dict:
+    """Run the benchmark in a process of its own, with none of the caller's
+    BENCH_* or SEGALIGN_* settings; fail unless it exits 0. Returns its
+    passes in order, each a dict of label, launches, peak_gib and, but for
+    the engine parity's, counts (seeds, hits, HSPs) and mbps; the gapped
+    stage's (segments, accepted); its last line; and its build, steady,
+    gapped and overlapped lines."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "SEGALIGN_"))}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.time()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-m", "segalign_tpu_torch.bench", "--device",
+             "cuda"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        fail(f"the benchmark ran past {BENCH_TIMEOUT} s:\n"
+             f"{(e.stderr or b'')[-3000:]}")
+    secs = time.time() - t0
+    if p.returncode != 0:
+        fail(f"the benchmark exited {p.returncode}:\n{p.stderr[-3000:]}")
+    err = p.stderr
+    # a pass prints its cell[...] line, then (but for the engine parity's)
+    # its bench[...] line
+    passes = []
+    for ln in err.splitlines():
+        m = re.match(r"cell\[([\w.-]+)\]: launches (\{.*?\})"
+                     r"(?:, max_memory_allocated ([\d.]+) GiB)?$", ln)
+        if m:
+            passes.append(dict(label=m[1], launches=json.loads(m[2]),
+                               peak_gib=float(m[3]) if m[3] else None,
+                               counts=None, mbps=None))
+        m = re.match(r"bench\[([\w.-]+)\]: .* \| seeds=(\d+) hits=(\d+) "
+                     r"hsps=(\d+) \(.*\) -> ([\d.]+) Mbp/s$", ln)
+        if m:
+            if not passes or passes[-1]["label"] != m[1]:
+                fail(f"the benchmark's bench[{m[1]}] line follows no "
+                     f"cell[{m[1]}] line")
+            passes[-1].update(counts=tuple(map(int, m.group(2, 3, 4))),
+                              mbps=float(m[5]))
+    gapped = re.search(r"^gapped stage \(native ydrop\): (\d+) segments "
+                       r"in .*?, (\d+) accepted\)", err, re.M)
+
+    def line(prefix):
+        found = [ln for ln in err.splitlines() if ln.startswith(prefix)]
+        return " | ".join(found) if found else f"no {prefix} line"
+
+    try:
+        result = json.loads(p.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"the benchmark printed no result line:\n{p.stdout[-2000:]}")
+    return dict(passes=passes, result=result, seconds=secs,
+                gapped=(tuple(map(int, gapped.groups())) if gapped
+                        else None),
+                build=line("build:"), steady=line("steady["),
+                gapped_line=line("gapped stage"), e2e_line=line("e2e["))
+
+
 class Kernels:
     """Per-kernel findings of phase 1."""
 
@@ -331,13 +418,14 @@ class Kernels:
         row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def check(self, name, label, err, kernel, plain, reps, nbytes, ops=0.0,
-              library=None):
+              library=None, variant=None):
         """Fail unless err is 0; time the kernel beside its plain version
         (wrapper_ms and plain_ms: back-to-back calls, which read the larger
         of the host's and the card's time for a call), then the kernel
         alone and, where one PyTorch call computes the same function, that
         call (kernel_ms and library_ms: replayed from a CUDA graph); the
-        first check of a kernel (its main-path shape) gives its row."""
+        first check of a kernel (its main-path shape) gives its row, and a
+        check with a `variant` name goes to the row's "variants"."""
         self.verify(name, label, err)
         wrapper_ms, plain_ms = _time_pair(kernel, plain, reps)
         ms = _graph_ms(kernel, reps)
@@ -351,9 +439,12 @@ class Kernels:
               + ("none" if library_ms is None else f"{library_ms:.4f}"),
               flush=True)
         row = self.rows[name]
-        if "ms" not in row:
-            row.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by, library_ms=library_ms)
+        timing = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                      bound_ms=bms, bound_by=by, library_ms=library_ms)
+        if variant is not None:
+            row.setdefault("variants", {})[variant] = timing
+        elif "ms" not in row:
+            row.update(timing)
 
 
 def main():
@@ -428,6 +519,7 @@ def main():
     K = Kernels()
     rng = np.random.default_rng(2024)
     pad, W, Wc = PAD, FIRST_W, CONT_W
+    W256 = 256   # the first window of the benchmark's engine parity
     n_r, n_q = al.ref_len, al.q_len
     sub = al.sub
     # copies of the padded sequences with walls (code 7) sprinkled in,
@@ -500,6 +592,19 @@ def main():
                 gather_bytes(seq, B, 2 * W),
                 library=lambda: index_gather(seq, s, 2 * W))
 
+    # K3 at the engine parity's 2W = 512
+    for T, s, label in ((64, pad + loc_q - W256, "query-sorted starts T=64"),
+                        (512, clustered, "clustered starts T=512")):
+        seq = ref_w if T == 512 else q_w
+        got = gather_rows_tile(seq, s, 2 * W256, T)
+        err = _err(got, gather_rows_plain(seq, s, 2 * W256))
+        K.check("gather_rows_tile", f"B={B} W={2 * W256} {label}", err,
+                lambda: gather_rows_tile(seq, s, 2 * W256, T),
+                lambda: gather_rows_plain(seq, s, 2 * W256), 20,
+                gather_bytes(seq, B, 2 * W256),
+                library=lambda: index_gather(seq, s, 2 * W256),
+                variant=f"W={2 * W256} T={T}")
+
     def tile_edge(seq, s, width, T, label):
         s = torch.as_tensor(np.asarray(s, np.int64).astype(np.int32)).to(dev)
         K.verify("gather_rows_tile", f"B={s.numel()} W={width} T={T} {label}",
@@ -548,6 +653,26 @@ def main():
                 lambda: first_scan_plain(*args, W=W, with_counts=wc), 5,
                 nbytes, sum(w[1] for w in work))
         first[wc] = got
+    del r2, q2
+    # K1 at the engine parity's W = 256
+    r2 = gather_rows(ref_w, r_start + W - W256, 2 * W256)
+    q2 = gather_rows(q_w, q_start + W - W256, 2 * W256)
+    for wc in (False, True):
+        args = (r2, q2, loc_r, loc_q, valid, sub, 910, n_r, n_q)
+        got = first_scan(*args, W=W256, with_counts=wc)
+        want = first_scan_plain(*args, W=W256, with_counts=wc)
+        err = max(_state_err(g, w) for g, w in zip(got, want))
+        alive = [int((~g["done"]).sum()) for g in got]
+        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W256)
+                for left in (False, True)]
+        nbytes = sum(w[0] for w in work) - B * (7 + 2 * STATE_BYTES) - 256
+        K.check("first_scan", f"B={B} W={W256} "
+                f"counts={'on' if wc else 'off'} (alive after: right "
+                f"{alive[0]}, left {alive[1]})", err,
+                lambda: first_scan(*args, W=W256, with_counts=wc),
+                lambda: first_scan_plain(*args, W=W256, with_counts=wc), 5,
+                nbytes, sum(w[1] for w in work),
+                variant=f"W={W256} counts={'on' if wc else 'off'}")
     del r2, q2
 
     Bc, tile = 16384, W
@@ -700,6 +825,7 @@ def main():
     by_T["native_pair"] = dict(gather_rows_tile.launches_by_T)
     n_hsps = sum(len(r.hsps) for r in results)
     n_hits = sum(r.num_hits for r in results)
+    n_seeds = sum(r.num_seeds for r in results)
     for r in results:
         if r.hsps.ndim != 2 or r.hsps.shape[1] != 4 or r.hsps.dtype != \
                 np.int64:
@@ -1022,6 +1148,62 @@ def main():
                                         "150000", "--chunk", "75000"])
     print(f"scaling scripts: {time.time() - t0:.1f} s [{card}]", flush=True)
 
+    # ---- phase 4b: the benchmark, in a process of its own
+    print("phase 4b: python -m segalign_tpu_torch.bench --device cuda",
+          flush=True)
+    bench = run_bench()
+    for ps in bench["passes"]:
+        print(f"  bench {ps['label']}: seeds, hits, HSPs {ps['counts']}, "
+              f"{ps['mbps']} Mbp/s, max_memory_allocated {ps['peak_gib']} "
+              f"GiB, launches {ps['launches']} [{card}]", flush=True)
+    for ps in bench["passes"]:
+        label = ps["label"]
+        # the parity's chunk-strand at W = 512 takes no tile gather (a
+        # block's windows overflow the span); at W = 256 one program does
+        need = {"parity-row": ("first_scan",),
+                "parity-roww256": ("first_scan", "gather_rows_tile")}.get(
+                    label, ("first_scan", "gather_rows", "gather_rows_tile",
+                            "window_scan"))
+        for k in need:
+            if ps["launches"].get(k, 0) == 0:
+                fail(f"bench {label}: {k} was not launched")
+        if label.startswith("parity-"):
+            continue
+        family = label.removesuffix("-cold").removesuffix("-serial")
+        want = ((n_seeds, n_hits, EXPECTED_HSPS) if family == "repeat-1x"
+                else SWEEP_COUNTS[family])
+        if ps["counts"] != want:
+            fail(f"bench {label}: seeds, hits, HSPs {ps['counts']}, "
+                 f"expected {want}")
+    labels = [ps["label"] for ps in bench["passes"]]
+    want_labels = ["repeat-1x-cold", *["repeat-1x"] * 3, "repeat-1x-serial",
+                   *(f"{f}{x}" for f in SWEEP_COUNTS for x in ("-cold", "")),
+                   "parity-row", "parity-roww256"]
+    if labels != want_labels:
+        fail(f"bench: passes {labels}, expected {want_labels}")
+    last = bench["result"]
+    if set(last) != BENCH_KEYS:
+        fail(f"bench: last line's keys {sorted(last)} are not the JAX "
+             f"bench's {sorted(BENCH_KEYS)}")
+    if last["engine_parity"] != PARITY:
+        fail(f"bench: engine_parity {last['engine_parity']!r}, expected "
+             f"{PARITY!r}")
+    if last["breakdown"]["covered_frac"] < 0.8:
+        fail(f"bench: the breakdown covers {last['breakdown']['covered_frac']}"
+             f" of its wall, under 0.8")
+    if bench["gapped"] != (EXPECTED_HSPS, EXPECTED_HSPS):
+        fail(f"bench: gapped stage {bench['gapped']} (segments, accepted), "
+             f"expected {EXPECTED_HSPS} each")
+    for label in ("repeat-1x", "repeat-0.5x", "repeat-4x", "legacy-planted",
+                  "parity-row", "parity-roww256"):
+        by_slice[f"bench_{label}"] = [
+            ps for ps in bench["passes"] if ps["label"] == label][-1][
+                "launches"]
+    print(f"bench: {bench['seconds']:.1f} s; {bench['build']}; "
+          f"{bench['steady']}; breakdown {last['breakdown']}; "
+          f"{bench['gapped_line']}; {bench['e2e_line']}; result {last} "
+          f"[{card}]", flush=True)
+
     # ---- phase 5: results
     rows = []
     variants = "segalign_tpu_torch/csrc/gather_variants.cu"
@@ -1061,6 +1243,9 @@ def main():
                          launches_by_slice={
                              k: v[name] for k, v in by_slice.items()
                              if name in v}))
+        if "variants" in r:
+            # {shape: timings} of the narrower first window (W = 256)
+            rows[-1]["variants"] = r["variants"]
         if name == "gather_rows_tile":
             # {slice: {T: launches}}: which stage size the paths ask for
             rows[-1]["launches_by_T"] = {

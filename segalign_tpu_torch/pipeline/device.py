@@ -28,11 +28,31 @@ buffer classes, dummy programs, the fixed compaction width and its
 escalation, transient-compile retries and the compile lock. Every device
 step here runs eagerly on `device`, a CPU device in tests and a CUDA
 device on the card.
+
+Stage times, as in the JAX aligner: every chunk adds the host time of its
+stages to STAGE_TOTALS (bench.py's serial breakdown reads it; cleared by
+reset_stage_totals). The native route's stages are seeds (the native
+seeder), mask (the RM window), h2d (the tile checks and the anchors'
+upload), extend (extend_fields_program), pack (_pack_compact), d2h (the
+candidates' fetch) and host_dedup (_split_and_finalize); the device
+route's are seeds (chunk_seeds), plan (_batch_ends), extend
+(_process_hit_range, whose fetch is part of it), nrange (1e-3 a hit range:
+a count) and host_dedup. The JAX stage recompact has no counterpart (it
+re-packs the fixed compaction width, which the port does not have), nor
+has the device route's separate d2h. Kernels run asynchronously, so a
+device stage's time is its dispatch time unless SEGALIGN_SYNC=1, which
+synchronizes the device before each device stage's clock stops.
+SEGALIGN_TIMING=1 prints each chunk's stages to stderr. Both are read on
+every call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
+import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -53,11 +73,44 @@ from ..ops.padding import pad_sequence
 from ..ops.seeding import chunk_seeds
 
 DEFAULT_MAX_HITS = 4194304 * 16  # reference: MAX_HITS_PER_GB * gpu_mem_gb
-# extension window widths: the first window of every hit, and the windows
-# of the hits that outrun it (results do not depend on either width)
+# extension window widths: the first window of every hit (the default of
+# DeviceAligner's `window`), and the windows of the hits that outrun it
+# (results do not depend on either width)
 FIRST_W = 512
 CONT_W = 2048
 PAD = max(FIRST_W, CONT_W)  # sequence padding that covers every window
+
+# Cumulative host time of each stage over every chunk in this process, in
+# seconds (module docstring); two threads add to it under map_chunks'
+# finisher, hence the lock.
+STAGE_TOTALS: dict = {}
+_STAGE_LOCK = threading.Lock()
+
+
+def reset_stage_totals():
+    with _STAGE_LOCK:
+        STAGE_TOTALS.clear()
+
+
+class _StageTimer:
+    """One chunk's stage times: each add goes to STAGE_TOTALS, and to the
+    chunk's own line on stderr under SEGALIGN_TIMING=1."""
+
+    def __init__(self):
+        self.enabled = os.environ.get("SEGALIGN_TIMING", "") == "1"
+        self.t = {}
+
+    def add(self, name, dt):
+        if self.enabled:
+            self.t[name] = self.t.get(name, 0.0) + dt
+        with _STAGE_LOCK:
+            STAGE_TOTALS[name] = STAGE_TOTALS.get(name, 0.0) + dt
+
+    def dump(self, prefix):
+        if self.enabled and self.t:
+            parts = " ".join(f"{k}={v*1000:.1f}ms"
+                             for k, v in sorted(self.t.items()))
+            print(f"[timing] {prefix}: {parts}", file=sys.stderr, flush=True)
 
 
 def on_device(device: torch.device):
@@ -215,7 +268,11 @@ class DeviceAligner:
     def __init__(self, *, shape_pos, seed_size, transition, step, sub_mat,
                  xdrop, hspthresh, noentropy, chunk_size, device,
                  max_hits: int = DEFAULT_MAX_HITS, HBUF: int = 1 << 17,
-                 rm_mode: bool = False, device_seeding: bool = False):
+                 rm_mode: bool = False, device_seeding: bool = False,
+                 window: int = FIRST_W):
+        if window <= 0 or window % 16 or window > PAD:
+            raise ValueError(f"window={window} must be a multiple of 16 in "
+                             f"(0, {PAD}] (the sequence padding)")
         self.shape_pos = tuple(shape_pos)
         self.seed_size = seed_size
         self.kmer_size = len(shape_pos)
@@ -232,6 +289,9 @@ class DeviceAligner:
         self.HBUF = HBUF
         self.rm_mode = rm_mode
         self.device_seeding = device_seeding
+        # first-window width of the native route's extension programs
+        # (outputs do not depend on it)
+        self.window = window
         self.device = torch.device(device)
         self.sub = torch.as_tensor(
             np.asarray(sub_mat, np.int32).reshape(-1)).to(self.device)
@@ -286,9 +346,11 @@ class DeviceAligner:
         On the native route a finisher thread fetches each chunk's
         candidates and runs the host finalize and dedup while this thread
         seeds and extends the next chunks; at most `depth` finished-but-
-        unread chunks wait. The device route runs chunk by chunk, as in the
-        JAX package. on_result(index, ChunkResult), when given, fires as
-        each chunk finishes, in work order."""
+        unread chunks wait. SEGALIGN_OVERLAP=0 (read on every call) runs
+        the serial form instead: this thread finishes each chunk once
+        `depth` newer ones are dispatched. The device route runs chunk by
+        chunk, as in the JAX package. on_result(index, ChunkResult), when
+        given, fires as each chunk finishes, in work order."""
         if self.device_seeding:
             results = []
             for i, w in enumerate(work):
@@ -298,6 +360,17 @@ class DeviceAligner:
                     on_result(i, results[-1])
             return results
         results = []
+        if os.environ.get("SEGALIGN_OVERLAP", "") == "0":
+            pend: deque = deque()
+            for i, w in enumerate(work):
+                pend.append((i, self.dispatch_chunk(
+                    w.chunk_start, w.chunk_end, w.rev, window=w.window)))
+                while pend and (len(pend) > depth or i == len(work) - 1):
+                    j, p = pend.popleft()
+                    results.append(self.finish_chunk(p))
+                    if on_result is not None:
+                        on_result(j, results[-1])
+            return results
         futs: deque = deque()
 
         def drain():
@@ -339,17 +412,21 @@ class DeviceAligner:
                        ) -> PendingChunk:
         """Host-native seeding and hit expansion, then the extension and
         candidate compaction on the device (native route)."""
+        tm = _StageTimer()
+        t0 = time.time()
         q_host = self._q_rc_host if rev else self._q_fw_host
         index_table, pos_table = self._host_tables
         ref_loc, query_loc, _, hit_bound, num_seeds, num_hits = (
             self._seeder.seed(
                 q_host, chunk_start, chunk_end - chunk_start, index_table,
                 pos_table, self.shape_pos, self.seed_size, self.max_hits))
+        tm.add("seeds", time.time() - t0)
         seg_ends = np.asarray(hit_bound, np.int64)
         empty = PendingChunk(chunk_start, chunk_end, rev, num_seeds,
                              num_hits, None, seg_ends)
         if num_seeds == 0 or num_hits == 0:
             return empty
+        t0 = time.time()
         if window is not None:
             # keep the hits in the window; the batch ends count kept hits
             keep = (ref_loc >= window[0]) & (ref_loc <= window[1])
@@ -357,38 +434,56 @@ class DeviceAligner:
             seg_ends = np.where(seg_ends > 0,
                                 kept_cum[np.maximum(seg_ends - 1, 0)], 0)
             ref_loc, query_loc = ref_loc[keep], query_loc[keep]
-            if len(ref_loc) == 0:
-                return empty
+        tm.add("mask", time.time() - t0)
+        if len(ref_loc) == 0:
+            return empty
         q_pad = self.q_rc if rev else self.q_fw
-        fins = self._dispatch_rows(ref_loc, query_loc, q_pad)
+        fins = self._dispatch_rows(ref_loc, query_loc, q_pad, tm)
+        t0 = time.time()
         out = _pack_compact(fins, torch.from_numpy(seg_ends).to(self.device))
+        self._sync()
+        tm.add("pack", time.time() - t0)
+        tm.dump(f"dispatch {chunk_start}:{chunk_end} rev={rev} "
+                f"hits={num_hits}")
         return PendingChunk(chunk_start, chunk_end, rev, num_seeds, num_hits,
                             out, seg_ends)
 
+    def _sync(self):
+        """Under SEGALIGN_SYNC=1, wait for the device's work (CUDA only)."""
+        if self.device.type == "cuda" and \
+                os.environ.get("SEGALIGN_SYNC", "") == "1":
+            torch.cuda.synchronize(self.device)
+
     def _dispatch_rows(self, ref_loc: np.ndarray, query_loc: np.ndarray,
-                       q_pad: torch.Tensor) -> list:
+                       q_pad: torch.Tensor, tm: _StageTimer) -> list:
         """One extension program per span of at most HBUF hits."""
-        W2 = 2 * FIRST_W
+        W = self.window
         fins = []
         for g0 in range(0, len(ref_loc), self.HBUF):
+            t0 = time.time()
             r = ref_loc[g0:g0 + self.HBUF]
             q = query_loc[g0:g0 + self.HBUF]
             # the first window's gather starts, as extend_fields_program
             # computes them: the tile gather serves a program whose blocks
             # of 128 windows each fit its staged span
-            qtile = tile_spans_ok(np.clip(PAD + q.astype(np.int64) - FIRST_W,
-                                          0, q_pad.numel() - W2), W2, Q_TILE)
-            rtile = tile_spans_ok(np.clip(PAD + r.astype(np.int64) - FIRST_W,
-                                          0, self.ref_pad.numel() - W2), W2,
-                                  R_TILE)
+            qtile = tile_spans_ok(np.clip(PAD + q.astype(np.int64) - W, 0,
+                                          q_pad.numel() - 2 * W), 2 * W,
+                                  Q_TILE)
+            rtile = tile_spans_ok(np.clip(PAD + r.astype(np.int64) - W, 0,
+                                          self.ref_pad.numel() - 2 * W),
+                                  2 * W, R_TILE)
+            d_r = torch.from_numpy(r).to(self.device)
+            d_q = torch.from_numpy(q).to(self.device)
+            tm.add("h2d", time.time() - t0)
+            t0 = time.time()
             fin = extend_fields_program(
-                self.ref_pad, q_pad, torch.from_numpy(r).to(self.device),
-                torch.from_numpy(q).to(self.device), len(r), self.sub,
-                self.xdrop, self.hspthresh, self.ref_len, self.q_len,
-                pad=PAD, W=FIRST_W, W_CONT=CONT_W, with_counts=False,
-                qtile=qtile, rtile=rtile)
+                self.ref_pad, q_pad, d_r, d_q, len(r), self.sub, self.xdrop,
+                self.hspthresh, self.ref_len, self.q_len, pad=PAD, W=W,
+                W_CONT=CONT_W, with_counts=False, qtile=qtile, rtile=rtile)
             fin["orig"] = torch.arange(g0, g0 + len(r), device=self.device)
             fins.append(fin)
+            self._sync()
+            tm.add("extend", time.time() - t0)
         return fins
 
     def finish_chunk(self, p: PendingChunk) -> ChunkResult:
@@ -397,9 +492,16 @@ class DeviceAligner:
         if p.out is None or p.out.shape[0] == 0:
             return ChunkResult(np.zeros((0, 4), np.int64), p.num_hits,
                                p.num_seeds)
+        tm = _StageTimer()
+        t0 = time.time()
         allrows = p.out.cpu().numpy().astype(np.int64)
-        return ChunkResult(self._split_and_finalize(allrows, p), p.num_hits,
-                           p.num_seeds)
+        tm.add("d2h", time.time() - t0)
+        t0 = time.time()
+        hsps = self._split_and_finalize(allrows, p)
+        tm.add("host_dedup", time.time() - t0)
+        tm.dump(f"finish {p.chunk_start}:{p.chunk_end} rev={p.rev} "
+                f"cand={len(allrows)}")
+        return ChunkResult(hsps, p.num_hits, p.num_seeds)
 
     def _split_and_finalize(self, allrows: np.ndarray,
                             p: PendingChunk) -> np.ndarray:
@@ -448,6 +550,8 @@ class DeviceAligner:
         extension of one chunk-strand; host finalize and dedup per logical
         batch."""
         empty = np.zeros((0, 4), np.int64)
+        tm = _StageTimer()
+        t0 = time.time()
         q = self.q_rc if rev else self.q_fw
         _, qpos, _, starts, cum, stats = chunk_seeds(
             q, self.index_table, chunk_start, chunk_end - chunk_start,
@@ -456,23 +560,37 @@ class DeviceAligner:
         num_seeds, num_hits = stats.tolist()
         if num_seeds == 0:
             return ChunkResult(empty, 0, 0)
+        tm.add("seeds", time.time() - t0)
         if num_hits == 0:
             return ChunkResult(empty, 0, num_seeds)
+        t0 = time.time()
+        ends = _batch_ends(cum, num_hits, self.max_hits)
+        tm.add("plan", time.time() - t0)
         all_out: List[np.ndarray] = []
         h0 = 0
-        for h1 in _batch_ends(cum, num_hits, self.max_hits):
+        for h1 in ends:
             g0s = range(h0, h1, self.HBUF)
             h0 = max(h0, h1)
             if not g0s:
                 continue
-            rows = np.concatenate([_process_hit_range(
-                self.ref_pad, q, self.pos_table, cum, starts, qpos, self.sub,
-                g0, min(g0 + self.HBUF, h1), self.ref_len, self.q_len,
-                self.xdrop, self.hspthresh, self.seed_size, window, pad=PAD)
-                for g0 in g0s])
+            parts = []
+            for g0 in g0s:
+                t0 = time.time()
+                parts.append(_process_hit_range(
+                    self.ref_pad, q, self.pos_table, cum, starts, qpos,
+                    self.sub, g0, min(g0 + self.HBUF, h1), self.ref_len,
+                    self.q_len, self.xdrop, self.hspthresh, self.seed_size,
+                    window, pad=PAD))
+                tm.add("extend", time.time() - t0)
+                tm.add("nrange", 1e-3)
+            t0 = time.time()
+            rows = np.concatenate(parts)
             out = self._finalize_batch(rows[:, 0], rows[:, 1], rows[:, 2],
                                        rows[:, 3], rev, counts=rows[:, 4:8])
             if out is not None:
                 all_out.append(out)
+            tm.add("host_dedup", time.time() - t0)
         hsps = np.concatenate(all_out) if all_out else empty
+        tm.dump(f"chunk {chunk_start}:{chunk_end} rev={rev} "
+                f"hits={num_hits}")
         return ChunkResult(hsps, num_hits, num_seeds)

@@ -63,11 +63,11 @@ def test_gather_rows(dev, W):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("W", [1024, 512])   # 2 x the first window
 @pytest.mark.parametrize("T", [64, 512])
-def test_gather_rows_tile(dev, T):
+def test_gather_rows_tile(dev, T, W):
     rng = np.random.default_rng(T)
     seq = torch.from_numpy(rng.integers(0, 8, 400_000).astype(np.uint8))
-    W = 1024
     sorted_ = np.sort(rng.integers(0, 50_000, 3000))       # fits T=64
     clustered = 200_000 + rng.integers(0, 60_000, 1000)   # fits T=512
     wide = rng.integers(0, 400_000, 333)                    # fits no tile
@@ -79,9 +79,10 @@ def test_gather_rows_tile(dev, T):
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
-def test_first_scan(dev, with_counts):
+@pytest.mark.parametrize("W", [512, 256])   # the aligner's window widths
+def test_first_scan(dev, W, with_counts):
     rng = np.random.default_rng(1 + with_counts)
-    n, pad, W, B = 20_000, 1024, 512, 5000
+    n, pad, B = 20_000, 1024, 5000
     seq = torch.from_numpy(_seq(rng, n, pad))
     loc_r = rng.integers(0, n, B).astype(np.int32)
     loc_q = loc_r.copy()
@@ -89,7 +90,13 @@ def test_first_scan(dev, with_counts):
     loc_r[B // 2:B // 2 + 1500] = rng.integers(1000, 4000, 1500)
     loc_q[B // 2:B // 2 + 1500] = loc_r[B // 2:B // 2 + 1500] + n // 2 - 1000
     loc_r[:4], loc_q[:4] = [0, n - 1, 3, 499], [n - 1, 0, 5, 499]
+    # rows whose right (then left) window holds 0, 1, 255, 256, 257 and W
+    # in-bounds lanes: the scan must not count a lane at or past the end,
+    # nor read the other half's bytes
+    ends = np.array([0, 1, 255, 256, 257, W])
+    loc_r[4:16] = loc_q[4:16] = np.concatenate([n - ends, ends])
     valid = rng.random(B) > 0.1
+    valid[4:16] = True
     lr, lq = torch.from_numpy(loc_r), torch.from_numpy(loc_q)
     r2 = gather_rows_plain(seq, pad + lr - W, 2 * W)
     q2 = gather_rows_plain(seq, pad + lq - W, 2 * W)
@@ -223,6 +230,51 @@ def test_device_seeding_aligner_cuda_matches_cpu(dev, rm_mode):
             np.testing.assert_array_equal(a.hsps, b.hsps)
             n += len(a.hsps)
     assert n > 0 and window_scan_wide.launches > before
+
+
+def test_window_256_on_the_card_equals_512(dev):
+    """Both strands of every chunk of a 1 Mbp slice of the bench pair on
+    the card: the first window at 256 gives the HSPs of 512."""
+    from segalign_tpu_torch import bench, bench_inputs
+    from segalign_tpu_torch.io.encode import revcomp_codes
+    ref, query = (x[:1_000_000] for x in bench_inputs.load_inputs())
+    qrc = revcomp_codes(query)
+    work = bench_inputs.chunk_work(query)
+    out = {}
+    for w in (256, 512):
+        al = bench.make_aligner(dev, window=w)
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+        first_scan.launches = 0
+        out[w] = al.map_chunks(work)
+        assert first_scan.launches > 0
+    assert sum(len(r.hsps) for r in out[512]) > 0
+    for a, b in zip(out[256], out[512]):
+        assert (a.num_hits, a.num_seeds) == (b.num_hits, b.num_seeds)
+        np.testing.assert_array_equal(a.hsps, b.hsps)
+
+
+def test_bench_run_config_on_the_card_equals_the_cpu(dev, tmp_path,
+                                                     monkeypatch):
+    """The port's bench.run_config at 0.3 x 0.2 Mbp: seeds, hits, HSPs and
+    every chunk-strand's array on the card equal the CPU's."""
+    from segalign_tpu_torch import bench, bench_inputs
+    ref, query = bench_inputs.load_inputs(0.3, 0.2)
+    out = {}
+    for d in ("cpu", dev):
+        path = str(tmp_path / f"{d}.npz")
+        monkeypatch.setenv("BENCH_SAVE_HSPS", path)
+        res = bench.run_config(ref, query, "repeat-1x", d)
+        with np.load(path) as z:
+            out[str(d)] = (res["stats"], {k: z[k] for k in z.files})
+        if d == dev:
+            assert res["launches"]["first_scan"] > 0
+            assert res["peak_bytes"] > 0
+    (want, want_h), (got, got_h) = out["cpu"], out[str(dev)]
+    assert got == want and want["hsps"] > 0
+    assert got_h.keys() == want_h.keys()
+    for k in want_h:
+        np.testing.assert_array_equal(got_h[k], want_h[k], err_msg=k)
 
 
 def test_aligner_cuda_matches_cpu(dev):

@@ -528,6 +528,19 @@ def case_bench_inputs(tmp_path, rng):
          bench_inputs.synth_genome_repeats(rb, 150_000, lib_b,
                                            homolog_from=partner,
                                            repeat_mult=2.0))
+    # the density sweep's and legacy-planted's generators, alone and with
+    # a partner, at an n past 1 Mbp, where every loop of theirs runs
+    for mult in (0.5, 4.0):
+        for hf in (None, partner):
+            same(bench.synth_genome_repeats_sweep(
+                     ra, 1_050_000, lib_a, homolog_from=hf,
+                     repeat_mult=mult),
+                 bench_inputs.synth_genome_repeats_sweep(
+                     rb, 1_050_000, lib_b, homolog_from=hf,
+                     repeat_mult=mult))
+    for hf in (None, partner):
+        same(bench.synth_genome(ra, 1_050_000, homolog_from=hf),
+             bench_inputs.synth_genome(rb, 1_050_000, homolog_from=hf))
     assert bench.CHUNK == bench_inputs.CHUNK
     # make_aligner's settings, read from its source (calling it would
     # build a JAX aligner)
