@@ -82,6 +82,18 @@ last line, and without CUDA the script fails at once:
      defaults on the pair's 4 Mbp reference written as a FASTA, on both
      routes, whose interval files must be byte-identical (each route's
      launch counts are printed);
+  3e. the CLIs at genome scale, one process at a time on cuda:0, on
+     bench_inputs.write_scale_inputs' FASTAs: the pairwise CLI
+     (--nogapped --markend) on scale-8 (8 x 8 Mbp, 8 and 5 records) and
+     the RM CLI on scale-4's reference (4 Mbp, 8 records), whose FASTAs
+     and outputs must hash to the JAX CLIs' (the SCALE8_* and SCALE4_*
+     constants); the pairwise CLI on scale-16 (16 x 16 Mbp, 16
+     and 10 records) on the native route, the device route, the farm of
+     two aligners and the sharded table of four shards on cuda:0, whose
+     outputs must be byte-identical; the RM CLI on scale-16's reference on
+     both routes, identical; each run's wall, counts, peak memory and
+     launches (from its `stats` event) are printed, and K1-K4 must launch
+     on the native route, K2 and K5 on the device route;
   4. the measurement scripts, in process with small repetition counts:
      exp_gather_variants.main, probe_env.main and probe_extension.main
      over every probe; any exception fails the run, and each of S1-S4's
@@ -99,7 +111,10 @@ last line, and without CUDA the script fails at once:
      that covers at least 80% of its wall, K1-K4 launched in every pass
      (K1 and K3 also at W = 256) and a last line with exactly the JAX
      bench's keys; each pass's Mbp/s, peak memory and launches and the
-     breakdown's stages are printed;
+     breakdown's stages are printed; then the same process with
+     SEGALIGN_DEVICE_SEEDING=1 (the device-seeding route, which the
+     aligner reads), held to the same counts, parity and gapped stage,
+     with K2 and K5 launched in every pass;
   5. the kernels as one JSON line, then the result as the last line.
 
 Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
@@ -135,6 +150,27 @@ GAPPED_CLI_SHA256 = ("2a6c4edba60baf6d41efdef1f191548a"
                      "b3f3d284e2340b3dd1a5a1d338f2e9a8")
 # genome length of phase 3c (the repeat-1x reference, not cut)
 RM_REAL_LEN = 4_000_000
+# phase 3e: sha256 of bench_inputs.write_scale_inputs' FASTAs (scale-8's
+# pair, scale-4's reference) and of what the JAX CLIs write for them,
+# computed on the CPU with `segalign_tpu.cli.run_segalign ref8.fa qry8.fa
+# --nogapped --output out.segments --markend` and `segalign_tpu.cli.
+# run_segalign_repeat_masker ref4.fa --output out.seg --markend`, with
+# their HSP and interval counts (the JAX repeat masker did not finish on
+# scale-8's reference within two hours on a CPU; on scale-4's it took 43
+# minutes)
+SCALE8_REF_SHA256 = ("7592366ee4ff0d25ca2c3eed94249e90"
+                     "b510fc637f3bfe8cc667feb40a5206a3")
+SCALE8_QUERY_SHA256 = ("fa02bf45420ce123bca73a5f438f06c7"
+                       "a69dd51a9638bcc992a5198e3ab873b4")
+SCALE8_CLI_SHA256 = ("1fa8f0dba330ad47df7c6c265fa78727"
+                     "97ad5129a997666367c08ed0b00dfebc")
+SCALE8_HSPS = 15134
+SCALE4_REF_SHA256 = ("e911c3a79635be3c3203c7c323568acf"
+                     "5f1c5b3f717cf8af7a5c3e861ac9dcee")
+SCALE4_RM_SHA256 = ("abbcda35b6dc97862c2d2a1faf43a3f0"
+                    "bd6dfa13122dbd61f0b610c3345529e5")
+SCALE4_INTERVALS = 1009
+SCALE_CLI_TIMEOUT = 300
 # seeds, hits and HSPs of the JAX package's bench.py on the density sweep
 # (2 Mbp) and legacy-planted (4 Mbp): device-independent integers
 SWEEP_COUNTS = {"repeat-0.5x": (51639822, 6188443, 296),
@@ -343,16 +379,58 @@ def run_clis(jobs: list, d: str) -> dict:
                 p.wait()
 
 
-def run_bench() -> dict:
+def run_cli_logged(label: str, module: str, argv: list, env: dict,
+                   cwd: str) -> dict:
+    """Run one of the port's CLIs in a process of its own, in cwd, with
+    SEGALIGN_LOG_JSON=1; fail unless it exits 0 without the farm's retry
+    pass. Returns its output bytes and their sha256, its wall and the
+    pipeline's `stats` event (seeds, hits, HSPs, the kernels' launches in
+    the process, each card's peak memory)."""
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    out = os.path.join(cwd, "out.txt")
+    t0 = time.time()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}",
+             *argv, "--output", out], cwd=cwd,
+            env=dict(os.environ, PYTHONPATH=ROOT, SEGALIGN_LOG_JSON="1",
+                     **env),
+            capture_output=True, text=True, timeout=SCALE_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        fail(f"{label} ran past {SCALE_CLI_TIMEOUT} s:\n"
+             f"{(e.stderr or b'')[-3000:]}")
+    secs = time.time() - t0
+    if p.returncode != 0:
+        fail(f"{label} exited {p.returncode}:\n{p.stderr[-3000:]}")
+    if "after device failure" in p.stderr:
+        fail(f"{label} retried chunks after a device failure:\n"
+             f"{p.stderr[-3000:]}")
+    stats = [json.loads(ln) for ln in p.stderr.splitlines()
+             if ln.startswith("{") and '"event":"stats"' in ln]
+    if len(stats) != 1:
+        fail(f"{label} logged {len(stats)} stats events")
+    with open(out, "rb") as f:
+        data = f.read()
+    return dict(data=data, sha256=hashlib.sha256(data).hexdigest(),
+                secs=secs, stats=stats[0])
+
+
+def sha256_file(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def run_bench(route_env: dict = None) -> dict:
     """Run the benchmark in a process of its own, with none of the caller's
-    BENCH_* or SEGALIGN_* settings; fail unless it exits 0. Returns its
-    passes in order, each a dict of label, launches, peak_gib and, but for
-    the engine parity's, counts (seeds, hits, HSPs) and mbps; the gapped
-    stage's (segments, accepted); its last line; and its build, steady,
-    gapped and overlapped lines."""
+    BENCH_* or SEGALIGN_* settings but route_env's; fail unless it exits 0.
+    Returns its passes in order, each a dict of label, launches, peak_gib
+    and, but for the engine parity's, counts (seeds, hits, HSPs) and mbps;
+    the gapped stage's (segments, accepted); its last line; and its build,
+    steady, gapped and overlapped lines."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("BENCH_", "SEGALIGN_"))}
-    env["PYTHONPATH"] = ROOT
+    env.update(route_env or {}, PYTHONPATH=ROOT)
     t0 = time.time()
     try:
         p = subprocess.run(
@@ -1117,6 +1195,94 @@ def main():
     if got["native"] != got["device"]:
         fail("the repeat masker's interval files differ between routes")
 
+    # ---- phase 3e: the CLIs at genome scale, one process at a time
+    print("phase 3e: the CLI on scale-8 (8 x 8 Mbp, 8 and 5 records) and "
+          "the RM CLI on scale-4's reference (4 Mbp, 8 records) against the "
+          "JAX CLIs, both on scale-16 (16 x 16 Mbp, 16 and 10 records) over "
+          "every route", flush=True)
+    t3e = time.time()
+    d = os.path.join(ROOT, "build", "chip_smoke_scale")
+    os.makedirs(d, exist_ok=True)
+    fa = {}
+    for tag in ("4", "8", "16"):
+        fa[tag] = (os.path.join(d, f"ref{tag}.fa"),
+                   os.path.join(d, f"qry{tag}.fa"))
+        bench_inputs.write_scale_inputs(f"scale-{tag}", *fa[tag])
+    digests = [sha256_file(f) for f in (*fa["8"], fa["4"][0])]
+    want_in = [SCALE8_REF_SHA256, SCALE8_QUERY_SHA256, SCALE4_REF_SHA256]
+    print(f"scale inputs written in {time.time() - t3e:.1f} s; FASTA "
+          f"sha256 {digests[0]} (scale-8 ref), {digests[1]} (scale-8 "
+          f"query), {digests[2]} (scale-4 ref)", flush=True)
+    if digests != want_in:
+        fail(f"the scale FASTAs hash to {digests}, not to the inputs of the "
+             f"JAX goldens {want_in}")
+    nog = ["--nogapped", "--markend"]
+    on0 = ["--device", "cuda:0"]
+    dev_env = {"SEGALIGN_DEVICE_SEEDING": "1"}
+    native_k = ("first_scan", "gather_rows", "gather_rows_tile",
+                "window_scan")
+    device_k = ("gather_rows", "window_scan_wide")
+    # label: (module, argv, env, kernels that must launch)
+    scale_jobs = {
+        "scale-8 cli": (pw, [*fa["8"], *nog], {}, native_k),
+        "scale-16 cli (native route)": (pw, [*fa["16"], *nog], {}, native_k),
+        "scale-16 cli (device route)": (pw, [*fa["16"], *nog], dev_env,
+                                        device_k),
+        "scale-16 cli, two aligners on cuda:0": (
+            pw, [*fa["16"], *nog, *on0, "--num_devices", "2"], {},
+            native_k),
+        "scale-16 cli, sharded table, four shards on cuda:0": (
+            pw, [*fa["16"], *nog, "--sharded_table", *on0, "--num_devices",
+                 "4"], {}, device_k),
+        "scale-4 rm cli": (rm, [fa["4"][0], "--markend"], {}, native_k),
+        "scale-16 rm cli (native route)": (rm, [fa["16"][0], "--markend"],
+                                           {}, native_k),
+        "scale-16 rm cli (device route)": (rm, [fa["16"][0], "--markend"],
+                                           dev_env, device_k),
+    }
+    scale = {}
+    for i, (label, (module, argv, env, need)) in enumerate(
+            scale_jobs.items()):
+        r = run_cli_logged(label, module, argv, env,
+                           os.path.join(d, f"cli_{i}"))
+        scale[label] = r
+        st = r["stats"]
+        what = (f"{r['data'].count(b'\n') - 2} intervals" if module == rm
+                else f"{r['data'].count(b'\n') - 1} segments")
+        peak = st["peak_device_bytes"]
+        print(f"{label}: {what}, {st['hsps']} HSPs, {st['seeds']} seeds, "
+              f"{st['seed_hits']} hits, process wall {r['secs']:.1f} s "
+              f"(ungapped stage {st['seconds']} s, "
+              f"{st['seed_hits'] / st['seconds']:.3g} hits/s), "
+              f"max_memory_allocated "
+              f"{max(peak) / 2**30 if peak else 0:.2f} GiB, launches "
+              f"{st['launches']}, sha256 {r['sha256']} [{card}]",
+              flush=True)
+        by_slice[label] = st["launches"]
+        for k in need:
+            if st["launches"][k] == 0:
+                fail(f"{label}: {k} was not launched")
+    for label, want, n_want in (
+            ("scale-8 cli", SCALE8_CLI_SHA256, SCALE8_HSPS),
+            ("scale-4 rm cli", SCALE4_RM_SHA256, SCALE4_INTERVALS)):
+        r = scale[label]
+        n = r["data"].count(b"\n") - (2 if "rm" in label else 1)
+        if r["sha256"] != want or n != n_want:
+            fail(f"{label}: sha256 {r['sha256']} and {n} lines, the JAX "
+                 f"CLI's {want} and {n_want}")
+    for prefix in ("scale-16 cli", "scale-16 rm cli"):
+        outs = {k: v["sha256"] for k, v in scale.items()
+                if k.startswith(prefix)}
+        if len(set(outs.values())) != 1:
+            fail(f"{prefix}: the routes' outputs differ: {outs}")
+    n16 = scale["scale-16 cli (native route)"]["stats"]["hsps"]
+    if n16 == 0:
+        fail("scale-16: no HSPs")
+    print(f"scale-8 and scale-4: the CLIs hash to the JAX CLIs'; scale-16: "
+          f"the four routes' {n16} HSPs byte-identical, the RM's two routes "
+          f"identical; phase 3e {time.time() - t3e:.1f} s [{card}]",
+          flush=True)
+
     # ---- phase 4: the measurement scripts
     print("phase 4: the measurement scripts, in process", flush=True)
     script_kernels = dict(
@@ -1148,61 +1314,75 @@ def main():
                                         "150000", "--chunk", "75000"])
     print(f"scaling scripts: {time.time() - t0:.1f} s [{card}]", flush=True)
 
-    # ---- phase 4b: the benchmark, in a process of its own
-    print("phase 4b: python -m segalign_tpu_torch.bench --device cuda",
-          flush=True)
-    bench = run_bench()
-    for ps in bench["passes"]:
-        print(f"  bench {ps['label']}: seeds, hits, HSPs {ps['counts']}, "
-              f"{ps['mbps']} Mbp/s, max_memory_allocated {ps['peak_gib']} "
-              f"GiB, launches {ps['launches']} [{card}]", flush=True)
-    for ps in bench["passes"]:
-        label = ps["label"]
-        # the parity's chunk-strand at W = 512 takes no tile gather (a
-        # block's windows overflow the span); at W = 256 one program does
-        need = {"parity-row": ("first_scan",),
-                "parity-roww256": ("first_scan", "gather_rows_tile")}.get(
-                    label, ("first_scan", "gather_rows", "gather_rows_tile",
-                            "window_scan"))
-        for k in need:
-            if ps["launches"].get(k, 0) == 0:
-                fail(f"bench {label}: {k} was not launched")
-        if label.startswith("parity-"):
-            continue
-        family = label.removesuffix("-cold").removesuffix("-serial")
-        want = ((n_seeds, n_hits, EXPECTED_HSPS) if family == "repeat-1x"
-                else SWEEP_COUNTS[family])
-        if ps["counts"] != want:
-            fail(f"bench {label}: seeds, hits, HSPs {ps['counts']}, "
-                 f"expected {want}")
-    labels = [ps["label"] for ps in bench["passes"]]
-    want_labels = ["repeat-1x-cold", *["repeat-1x"] * 3, "repeat-1x-serial",
-                   *(f"{f}{x}" for f in SWEEP_COUNTS for x in ("-cold", "")),
-                   "parity-row", "parity-roww256"]
-    if labels != want_labels:
-        fail(f"bench: passes {labels}, expected {want_labels}")
-    last = bench["result"]
-    if set(last) != BENCH_KEYS:
-        fail(f"bench: last line's keys {sorted(last)} are not the JAX "
-             f"bench's {sorted(BENCH_KEYS)}")
-    if last["engine_parity"] != PARITY:
-        fail(f"bench: engine_parity {last['engine_parity']!r}, expected "
-             f"{PARITY!r}")
-    if last["breakdown"]["covered_frac"] < 0.8:
-        fail(f"bench: the breakdown covers {last['breakdown']['covered_frac']}"
-             f" of its wall, under 0.8")
-    if bench["gapped"] != (EXPECTED_HSPS, EXPECTED_HSPS):
-        fail(f"bench: gapped stage {bench['gapped']} (segments, accepted), "
-             f"expected {EXPECTED_HSPS} each")
-    for label in ("repeat-1x", "repeat-0.5x", "repeat-4x", "legacy-planted",
-                  "parity-row", "parity-roww256"):
-        by_slice[f"bench_{label}"] = [
-            ps for ps in bench["passes"] if ps["label"] == label][-1][
-                "launches"]
-    print(f"bench: {bench['seconds']:.1f} s; {bench['build']}; "
-          f"{bench['steady']}; breakdown {last['breakdown']}; "
-          f"{bench['gapped_line']}; {bench['e2e_line']}; result {last} "
-          f"[{card}]", flush=True)
+    # ---- phase 4b: the benchmark, in a process of its own, on each route
+    for route, route_env in (("native", {}),
+                             ("device", {"SEGALIGN_DEVICE_SEEDING": "1"})):
+        print(f"phase 4b: python -m segalign_tpu_torch.bench --device cuda "
+              f"({route} route) {route_env}", flush=True)
+        bench = run_bench(route_env)
+        for ps in bench["passes"]:
+            print(f"  bench {ps['label']}: seeds, hits, HSPs {ps['counts']}, "
+                  f"{ps['mbps']} Mbp/s, max_memory_allocated "
+                  f"{ps['peak_gib']} GiB, launches {ps['launches']} [{card}]",
+                  flush=True)
+        for ps in bench["passes"]:
+            label = ps["label"]
+            # the parity's chunk-strand at W = 512 takes no tile gather (a
+            # block's windows overflow the span); at W = 256 one program
+            # does; the device route runs K2 and K5 in every pass
+            if route == "device":
+                need = ("gather_rows", "window_scan_wide")
+            else:
+                need = {"parity-row": ("first_scan",),
+                        "parity-roww256": ("first_scan",
+                                           "gather_rows_tile")}.get(
+                            label, ("first_scan", "gather_rows",
+                                    "gather_rows_tile", "window_scan"))
+            for k in need:
+                if ps["launches"].get(k, 0) == 0:
+                    fail(f"bench {label} ({route} route): {k} was not "
+                         f"launched")
+            if label.startswith("parity-"):
+                continue
+            family = label.removesuffix("-cold").removesuffix("-serial")
+            want = ((n_seeds, n_hits, EXPECTED_HSPS) if family == "repeat-1x"
+                    else SWEEP_COUNTS[family])
+            if ps["counts"] != want:
+                fail(f"bench {label} ({route} route): seeds, hits, HSPs "
+                     f"{ps['counts']}, expected {want}")
+        labels = [ps["label"] for ps in bench["passes"]]
+        want_labels = ["repeat-1x-cold", *["repeat-1x"] * 3,
+                       "repeat-1x-serial",
+                       *(f"{f}{x}" for f in SWEEP_COUNTS
+                         for x in ("-cold", "")),
+                       "parity-row", "parity-roww256"]
+        if labels != want_labels:
+            fail(f"bench ({route} route): passes {labels}, expected "
+                 f"{want_labels}")
+        last = bench["result"]
+        if set(last) != BENCH_KEYS:
+            fail(f"bench: last line's keys {sorted(last)} are not the JAX "
+                 f"bench's {sorted(BENCH_KEYS)}")
+        if last["engine_parity"] != PARITY:
+            fail(f"bench ({route} route): engine_parity "
+                 f"{last['engine_parity']!r}, expected {PARITY!r}")
+        if last["breakdown"]["covered_frac"] < 0.8:
+            fail(f"bench ({route} route): the breakdown covers "
+                 f"{last['breakdown']['covered_frac']} of its wall, under "
+                 f"0.8")
+        if bench["gapped"] != (EXPECTED_HSPS, EXPECTED_HSPS):
+            fail(f"bench ({route} route): gapped stage {bench['gapped']} "
+                 f"(segments, accepted), expected {EXPECTED_HSPS} each")
+        prefix = "bench_" if route == "native" else "bench_device_"
+        for label in ("repeat-1x", "repeat-0.5x", "repeat-4x",
+                      "legacy-planted", "parity-row", "parity-roww256"):
+            by_slice[prefix + label] = [
+                ps for ps in bench["passes"] if ps["label"] == label][-1][
+                    "launches"]
+        print(f"bench ({route} route): {bench['seconds']:.1f} s; "
+              f"{bench['build']}; {bench['steady']}; breakdown "
+              f"{last['breakdown']}; {bench['gapped_line']}; "
+              f"{bench['e2e_line']}; result {last} [{card}]", flush=True)
 
     # ---- phase 5: results
     rows = []

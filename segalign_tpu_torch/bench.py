@@ -58,10 +58,7 @@ from .config import build_substitution_matrix
 from .io.encode import encode, revcomp_codes
 from .io.fasta import read_fasta
 from .native import gapped_extend_native
-from .ops.first_scan import first_scan
-from .ops.gather import gather_rows, gather_rows_tile
-from .ops.window_scan import window_scan
-from .ops.window_scan_wide import window_scan_wide
+from .ops.launches import launch_counts
 from .pipeline import device as devmod
 from .pipeline.device import DeviceAligner
 
@@ -70,20 +67,6 @@ from .pipeline.device import DeviceAligner
 # speedups over lastz (the reference publishes no number). Not a TPU
 # figure and not a measurement; vs_baseline is value / this.
 NOMINAL_V100_MBPS = 2.0
-
-# the wrappers whose launches a pass reports: the growth of each one's
-# count over the pass (the counts are the wrappers', so the bench leaves
-# them as they are)
-KERNELS = dict(first_scan=first_scan, gather_rows=gather_rows,
-               gather_rows_tile=gather_rows_tile, window_scan=window_scan,
-               window_scan_wide=window_scan_wide)
-
-
-def _launches(since=None) -> dict:
-    """Each wrapper's count now, less `since`'s."""
-    return {k: fn.launches - (since or {}).get(k, 0)
-            for k, fn in KERNELS.items()}
-
 
 def load_inputs(ref_mbp: float, query_mbp: float):
     """The repeat-1x pair by default; real FASTA through BENCH_REF_FASTA /
@@ -135,7 +118,7 @@ def run_config(ref, query, label, device, al=None, qrc=None,
         al.seed_and_filter(0, min(CHUNK, q_len), rev=False)
         al.seed_and_filter(0, min(CHUNK, q_len), rev=True)
     work = bench_inputs.chunk_work(query)
-    before = _launches()
+    before = launch_counts()
     t1 = time.time()
     stats = dict(hsps=0, hits=0, seeds=0)
     results = al.map_chunks(work, depth=DEPTH)
@@ -144,7 +127,7 @@ def run_config(ref, query, label, device, al=None, qrc=None,
         stats["hits"] += r.num_hits
         stats["seeds"] += r.num_seeds
     dt = time.time() - t1
-    launches = _launches(before)
+    launches = launch_counts(before)
     peak = torch.cuda.max_memory_allocated(al.device) if cuda else None
     n_query = len(query)
     mbps = (n_query / 1e6) / dt
@@ -307,10 +290,10 @@ def engine_parity(ref, query, qrc, device):
         al = make_aligner(device, **kw)
         al.set_ref(ref[:1_000_000])
         al.set_query(query[:1_000_000], qrc[-1_000_000:])
-        before = _launches()
+        before = launch_counts()
         outs[name] = al.seed_and_filter(0, CHUNK, rev=False).hsps
         print(f"cell[parity-{name}]: launches "
-              f"{json.dumps(_launches(before))}", file=sys.stderr,
+              f"{json.dumps(launch_counts(before))}", file=sys.stderr,
               flush=True)
     base = outs["row"]
     names = [n for n, _ in engines[1:]]

@@ -240,3 +240,69 @@ def write_codes_fasta(path: str, codes, name: str = "ref") -> None:
     """A code array as a one-record FASTA (the repeat masker's input)."""
     write_fasta(path, [(name, np.frombuffer(b"ACGTaNX&", np.uint8)[
         codes].tobytes())])
+
+
+def write_records_fasta(path: str, codes, names, lengths,
+                        width: int = 60) -> None:
+    """A code array cut into named records of the given lengths (which
+    must sum to its length), written as a multi-record FASTA of `width`
+    columns, byte for byte what write_fasta writes for those records:
+    soft-masked code 4 as lowercase, N as N (write_codes_fasta's
+    mapping)."""
+    if len(names) != len(lengths) or sum(lengths) != len(codes):
+        raise ValueError(f"{len(names)} names and record lengths summing "
+                         f"to {sum(lengths)} for {len(codes)} bases")
+    ascii_ = np.frombuffer(b"ACGTaNX&", np.uint8)[codes]
+    with open(path, "wb") as f:
+        start = 0
+        for name, ln in zip(names, lengths):
+            rec = ascii_[start:start + ln]
+            start += ln
+            f.write(f">{name}\n".encode())
+            full = ln // width * width
+            # whole lines as one (rows, width + 1) block with a newline
+            # column, then the short last line
+            lines = np.empty((full // width, width + 1), np.uint8)
+            lines[:, :width] = rec[:full].reshape(-1, width)
+            lines[:, width] = ord("\n")
+            f.write(lines.tobytes())
+            if full < ln:
+                f.write(rec[full:].tobytes() + b"\n")
+
+
+# The genome-scale inputs: the repeat-1x generator (load_inputs, rng 2024)
+# at the size of a small genome pair or of one full default target block
+# (--seq_block_size, 500 Mbp), each genome cut into records of equal length
+# the way assemblies are laid out. name: (ref Mbp, query Mbp, (ref record
+# prefix, count), (query record prefix, count)). The query's records of
+# scale-8 and scale-16 (1.6 Mbp) end inside the 250 kb chunks and the
+# 10 Mbp lastz intervals. scale-4 is scale-8's layout at 4 Mbp: the size at
+# which the JAX repeat masker's CLI finishes on a CPU within the hour.
+SCALE_INPUTS = {
+    "scale-4": (4, 4, ("chr", 8), ("q", 5)),
+    "scale-8": (8, 8, ("chr", 8), ("q", 5)),
+    "scale-16": (16, 16, ("chr", 16), ("q", 10)),
+    "block-500": (500, 1, ("chr", 25), ("q", 1)),
+}
+
+
+def record_layout(prefix: str, count: int, total: int):
+    """Names prefix1..prefixN and the lengths of `count` records that cut
+    `total` bases evenly, the last taking the remainder."""
+    lengths = [total // count] * count
+    lengths[-1] += total - sum(lengths)
+    return [f"{prefix}{i + 1}" for i in range(count)], lengths
+
+
+def write_scale_inputs(name: str, ref_path: str, query_path: str):
+    """Write the scale input `name` (SCALE_INPUTS) as a reference and a
+    query FASTA; returns the (ref, query) code arrays."""
+    if name not in SCALE_INPUTS:
+        raise ValueError(f"unknown scale input {name!r}; one of "
+                         f"{tuple(SCALE_INPUTS)}")
+    ref_mbp, query_mbp, ref_rec, query_rec = SCALE_INPUTS[name]
+    ref, query = load_inputs(ref_mbp, query_mbp)
+    write_records_fasta(ref_path, ref, *record_layout(*ref_rec, len(ref)))
+    write_records_fasta(query_path, query,
+                        *record_layout(*query_rec, len(query)))
+    return ref, query

@@ -2,11 +2,11 @@
 
 Counterpart of segalign_tpu/cli/run_segalign_repeat_masker.py, with the
 same options and exit codes (4 file not found, 5 permissions) and the same
-output: a header, then the tmp*.* interval files in sort -V order. Two
-choices are the port's own: --device, the torch device of the run
-(default cuda; the run fails when CUDA is not available rather than
-running elsewhere), and the JAX package's SEGALIGN_DEVICE_SEEDING=1, which
-here selects the aligner's device-seeding route explicitly.
+output: a header, then the tmp*.* interval files in sort -V order. One
+choice is the port's own: --device, the torch device of the run (default
+cuda; the run fails when CUDA is not available rather than running
+elsewhere). SEGALIGN_DEVICE_SEEDING=1 selects the device-seeding route,
+read by the aligner as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,9 +60,7 @@ def main(argv=None) -> int:
         args.seq_file = seq_path
         cfg = rm_config_from_args(args)
         from ..pipeline.repeat_masker import run_repeat_masker
-        run_repeat_masker(
-            cfg, out_dir, device=device, resume=args.resume,
-            device_seeding=os.environ.get("SEGALIGN_DEVICE_SEEDING") == "1")
+        run_repeat_masker(cfg, out_dir, device=device, resume=args.resume)
 
         parts = sorted_glob(os.path.join(out_dir, "tmp*.*"))
         end = ("# segalign_repeat_masker end-of-file\n" if args.markend

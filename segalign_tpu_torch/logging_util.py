@@ -10,7 +10,9 @@ pipeline event a single JSON object on stderr, e.g.
    "interval": 3, "hsps": 1742, "seconds": 0.51}
 
 Events: run_start, ref_block, query_block, interval_done, stats,
-run_end (pairwise); rm_block, interval_done, stats, run_end (RM).
+run_end (pairwise); rm_block, interval_done, stats, run_end (RM). The
+port's stats event also carries each kernel wrapper's launch count in the
+process (`launches`) and every card's peak memory (`peak_device_bytes`).
 """
 
 from __future__ import annotations

@@ -91,6 +91,33 @@ def _as_i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+def check_chunk_hits(num_hits: int, chunk_start: int,
+                     int32_cum: bool = False):
+    """Raise when one chunk-strand's seed hits pass the ceiling:
+    SEGALIGN_MAX_CHUNK_HITS (2^28 by default, read on every call), and on
+    the device routes, whose cumulative hit counts are int32, 2^31 - 1.
+
+    The native route materializes a chunk's whole hit stream on the host
+    (2 x 4 B a hit), and unmasked low-complexity sequence (poly-A runs and
+    the like) can count hundreds of billions of hits for one 250 kb chunk:
+    fail with an actionable message instead of a 400 GiB allocation, or,
+    on the device routes, a cumulative count that wraps. The reference's
+    analog is its MAX_SEEDS assert (src/seed_filter.cu:688-692); its
+    intended workflow for repeat-dense genomes is soft-masking
+    (run_segalign_repeat_masker), the same as here."""
+    cap = int(os.environ.get("SEGALIGN_MAX_CHUNK_HITS", str(1 << 28)))
+    if int32_cum:
+        cap = min(cap, (1 << 31) - 1)
+    if num_hits > cap:
+        raise RuntimeError(
+            f"chunk at query offset {chunk_start} produces "
+            f"{num_hits:,} seed hits (> {cap:,}); this is "
+            f"low-complexity/repeat-dense sequence that should be "
+            f"soft-masked first (run run_segalign_repeat_masker, or "
+            f"RepeatMasker/tantan), or raise SEGALIGN_MAX_CHUNK_HITS "
+            f"if you really want to align it")
+
+
 class ChunkSeeder:
     """Host-native seeding + hit expansion for one (table, query) residency.
 
@@ -133,24 +160,7 @@ class ChunkSeeder:
             return (np.zeros(0, np.int32), np.zeros(0, np.int32),
                     np.zeros(0, np.int64), np.zeros(0, np.int64),
                     num_seeds, int(num_hits))
-        # Sanity ceiling: a single wga chunk materializes its whole hit
-        # stream on the host (2 x 4 B/hit). Unmasked low-complexity
-        # sequence (poly-A runs etc.) can count HUNDREDS OF BILLIONS of
-        # hits for one 250 kb chunk — fail with an actionable message
-        # instead of a 400 GiB allocation. The reference's analog is its
-        # MAX_SEEDS assert (src/seed_filter.cu:688-692);
-        # its intended workflow for repeat-dense genomes is soft-masking
-        # (run_segalign_repeat_masker), same as here.
-        cap_hits = int(os.environ.get("SEGALIGN_MAX_CHUNK_HITS",
-                                      str(1 << 28)))
-        if num_hits > cap_hits:
-            raise RuntimeError(
-                f"chunk at query offset {chunk_start} produces "
-                f"{num_hits:,} seed hits (> {cap_hits:,}); this is "
-                f"low-complexity/repeat-dense sequence that should be "
-                f"soft-masked first (run run_segalign_repeat_masker, or "
-                f"RepeatMasker/tantan), or raise SEGALIGN_MAX_CHUNK_HITS "
-                f"if you really want to align it")
+        check_chunk_hits(num_hits, chunk_start)
         cap = num_hits // max(max_hits, 1) + 4
         limit_pos = np.zeros(cap, np.int64)
         hit_bound = np.zeros(cap, np.int64)

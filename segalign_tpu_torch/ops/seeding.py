@@ -8,7 +8,9 @@ reads no seed table, which the sharded aligner calls on its own
 reference's: position-major, then the base k-mer, then its k transition
 variants; the hit-batch boundaries depend on it. The cumulative hit count
 is an int32 cumsum with int32 wraparound, as in the JAX package (whose
-blocked cumsum only works around an XLA lowering).
+blocked cumsum only works around an XLA lowering); the hit count in stats
+is an exact int64 sum, so that a caller can tell a chunk whose cumsum
+wrapped (the JAX package's int32 count wraps with it).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
     index_table: (4^k,) int32 bucket ends. Returns (kmers, qpos, valid,
     starts, cum, stats), all (S,) with S = CHUNK * (1 + k) with transitions
     (CHUNK without): cum is the inclusive int32 cumsum of the per-seed hit
-    counts (0 for invalid slots); stats is (2,) int32: the number of valid
+    counts (0 for invalid slots); stats is (2,) int64: the number of valid
     seeds and of hits."""
     kmers, qpos, valid = chunk_kmers(
         query_pad, chunk_start, chunk_len, CHUNK=CHUNK, seed_size=seed_size,
@@ -82,5 +84,5 @@ def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
     starts, ends = bucket_ranges(index_table, kmers)
     hit_counts = torch.where(valid, ends - starts, 0)
     cum = torch.cumsum(hit_counts, 0, dtype=torch.int32)
-    stats = torch.stack([valid.sum(dtype=torch.int32), cum[-1]])
+    stats = torch.stack([valid.sum(), hit_counts.sum(dtype=torch.int64)])
     return kmers, qpos, valid, starts.to(torch.int32), cum, stats

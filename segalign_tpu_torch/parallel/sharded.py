@@ -60,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from ..index.seed_table import build_seed_table
+from ..native import check_chunk_hits
 from ..ops.extend3 import extend_hits_windowed
 from ..ops.hits import expand_hits
 from ..ops.padding import pad_sequence
@@ -374,9 +375,10 @@ class ShardedAligner:
                 c = torch.zeros(nloc, dtype=torch.int32, device=dev)
                 c[orders[s]] = back[s][0]
                 slot_counts.append(c)
-        cum = torch.cumsum(gather_to(slot_counts, devices[0], group), 0,
-                           dtype=torch.int32)
-        num_hits = int(cum[-1])
+        counts_all = gather_to(slot_counts, devices[0], group)
+        num_hits = int(counts_all.sum(dtype=torch.int64))
+        check_chunk_hits(num_hits, chunk_start, int32_cum=True)
+        cum = torch.cumsum(counts_all, 0, dtype=torch.int32)
         if num_hits == 0:
             return ChunkResult(empty, 0, num_seeds)
         limit_slots, _ = _batch_limits(cum, num_hits, self.max_hits)

@@ -9,7 +9,9 @@ seeding routes, chosen when the aligner is made:
     hits in programs of at most HBUF rows (ops/extend_fused.py) and
     compacts and dedups the candidates (_pack_compact); the host recomputes
     the entropy counts of the candidates that need them.
-  - device seeding (device_seeding=True): the device seeds each chunk
+  - device seeding (device_seeding=True, or SEGALIGN_DEVICE_SEEDING=1 when
+    the caller passes None, read on each construction as the JAX aligner
+    reads it): the device seeds each chunk
     (ops/seeding.py); a host chain of lower bounds over the seeds' hit
     counts cuts the logical hit batches (_plan_limits); each range of at
     most HBUF hits is expanded (ops/hits.py), extended by the host-stepped
@@ -62,7 +64,8 @@ import numpy as np
 import torch
 
 from ..index.seed_table import build_seed_table
-from ..native import ChunkSeeder, entropy_counts_host, get_lib
+from ..native import (ChunkSeeder, check_chunk_hits, entropy_counts_host,
+                      get_lib)
 from ..ops.dedup import dedup_pairwise, dedup_rm
 from ..ops.extend3 import extend_hits_windowed
 from ..ops.extend_fused import Q_TILE, R_TILE, extend_fields_program
@@ -154,18 +157,22 @@ def _pack_compact(fins, seg_ends: torch.Tensor) -> torch.Tensor:
     batch has the same extent (rs, qs, length). Identical extents have
     identical totals and counts, so the host's entropy finalize and
     containment dedup give the same HSPs with one copy as with many (see
-    segalign_tpu/pipeline/device.py _pack_compact). Rows are sorted
-    stably on the int64 key (k1 << 31) | qs, where k1 is rs plus 2^30 for
-    non-candidates (rs, qs < 2^30), and neighbours equal on the key, the
-    length and the batch are duplicates."""
+    segalign_tpu/pipeline/device.py _pack_compact). Candidates are sorted
+    stably on the int64 key (rs << 31) | qs, non-candidates after them all,
+    and neighbours equal on the key, the length and the batch are
+    duplicates. rs and qs are int32 positions, so the key holds any block;
+    the JAX key, rs plus 2^30 for non-candidates, drops every candidate at
+    rs >= 2^30, which the repeat masker's block (1 Gbp and its neighbours'
+    overlap, a fifth of the genome) passes on any genome over 1.1 Gbp."""
     cat = lambda k: torch.cat([f[k] for f in fins])
     cand, orig = cat("candidate"), cat("orig")
     rs, qs, ln = cat("rs"), cat("qs"), cat("length")
     seg = torch.searchsorted(seg_ends, orig, right=True)
-    k1 = torch.where(cand, 0, 1 << 30) + rs.long()
-    key, order = torch.sort((k1 << 31) | qs.long(), stable=True)
+    key, order = torch.sort(
+        torch.where(cand, (rs.long() << 31) | qs.long(),
+                    torch.iinfo(torch.int64).max), stable=True)
     s_ln, s_seg = ln[order], seg[order]
-    live = key < (1 << 61)
+    live = cand[order]
     dup = ((key[1:] == key[:-1]) & (s_ln[1:] == s_ln[:-1])
            & (s_seg[1:] == s_seg[:-1]) & live[1:])
     keep = live.clone()
@@ -268,7 +275,8 @@ class DeviceAligner:
     def __init__(self, *, shape_pos, seed_size, transition, step, sub_mat,
                  xdrop, hspthresh, noentropy, chunk_size, device,
                  max_hits: int = DEFAULT_MAX_HITS, HBUF: int = 1 << 17,
-                 rm_mode: bool = False, device_seeding: bool = False,
+                 rm_mode: bool = False,
+                 device_seeding: Optional[bool] = None,
                  window: int = FIRST_W):
         if window <= 0 or window % 16 or window > PAD:
             raise ValueError(f"window={window} must be a multiple of 16 in "
@@ -288,6 +296,8 @@ class DeviceAligner:
         # window's byte windows
         self.HBUF = HBUF
         self.rm_mode = rm_mode
+        if device_seeding is None:
+            device_seeding = os.environ.get("SEGALIGN_DEVICE_SEEDING") == "1"
         self.device_seeding = device_seeding
         # first-window width of the native route's extension programs
         # (outputs do not depend on it)
@@ -560,6 +570,7 @@ class DeviceAligner:
         num_seeds, num_hits = stats.tolist()
         if num_seeds == 0:
             return ChunkResult(empty, 0, 0)
+        check_chunk_hits(num_hits, chunk_start, int32_cum=True)
         tm.add("seeds", time.time() - t0)
         if num_hits == 0:
             return ChunkResult(empty, 0, num_seeds)

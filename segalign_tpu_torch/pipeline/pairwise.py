@@ -23,6 +23,7 @@ from ..config import Config
 from ..io.blocks import build_arena, chunk_interval, plan_intervals
 from ..io.fasta import read_fasta
 from ..logging_util import log_event
+from ..ops.launches import launch_counts, peak_device_bytes
 from ..output.segments import PrinterContext, write_interval_segments
 from .manifest import Manifest
 
@@ -45,13 +46,15 @@ class PipelineStats:
 def run_pairwise(cfg: Config, out_dir: str, *, device,
                  emit: Optional[Callable[[str], None]] = None,
                  resume: bool = False,
-                 device_seeding: bool = False) -> PipelineStats:
+                 device_seeding: Optional[bool] = None
+                 ) -> PipelineStats:
     """Run the ungapped stage end to end on `device`.
 
     Writes query_block*.name / ref_block*.name and tmp*.segments files into
     out_dir, and passes each lastz command line to `emit` (default: print
     to stdout, the reference's data channel). device_seeding selects the
-    aligner's device-seeding route."""
+    aligner's device-seeding route (None: the aligner reads
+    SEGALIGN_DEVICE_SEEDING)."""
     if emit is None:
         emit = lambda line: print(line, flush=True)
     stats = PipelineStats()
@@ -186,7 +189,9 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
 
     manifest.close()
     log_event("stats", seeds=stats.num_seeds, seed_hits=stats.num_seed_hits,
-              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3))
+              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3),
+              launches=launch_counts(),
+              peak_device_bytes=peak_device_bytes())
     log_event("run_end", mode="pairwise")
     if cfg.debug:
         log(f"Time elapsed (complete pipeline): "

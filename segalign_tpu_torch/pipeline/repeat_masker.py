@@ -26,7 +26,7 @@ import sys
 import time
 from dataclasses import dataclass
 from math import ceil
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -36,6 +36,7 @@ from ..io.blocks import Chrom
 from ..io.encode import encode, revcomp_codes
 from ..io.fasta import read_fasta
 from ..logging_util import log_event
+from ..ops.launches import launch_counts, peak_device_bytes
 from .manifest import Manifest
 
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
@@ -194,11 +195,13 @@ def coverage_runs_sparse(hsp_starts: np.ndarray, hsp_ends: np.ndarray,
 
 def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
                       aligner=None, resume: bool = False,
-                      device_seeding: bool = False) -> PipelineStats:
+                      device_seeding: Optional[bool] = None
+                      ) -> PipelineStats:
     """Run the repeat masker end to end on `device`: one
     tmp{interval}.block{block}.intervals file per interval with runs, in
     out_dir. aligner: a prepared rm_mode aligner (tests); device_seeding
-    selects the aligner's device-seeding route."""
+    selects the aligner's device-seeding route (None: the aligner reads
+    SEGALIGN_DEVICE_SEEDING)."""
     stats = PipelineStats()
     log = lambda msg: print(msg, file=sys.stderr, flush=True)
 
@@ -306,7 +309,9 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
 
     manifest.close()
     log_event("stats", seeds=stats.num_seeds, seed_hits=stats.num_seed_hits,
-              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3))
+              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3),
+              launches=launch_counts(),
+              peak_device_bytes=peak_device_bytes())
     log_event("run_end", mode="repeat_masker")
     if cfg.debug:
         log(f"Time elapsed (complete pipeline): "
