@@ -44,7 +44,8 @@ last line, and without CUDA the script fails at once:
   2c. the same slice through the farm, MultiDeviceAligner with two
      aligners on cuda:0 (two worker threads and their finishers, one
      stream): every chunk-strand's array equal to phase 2's, K1-K4
-     launched, no worker failed (the farm's errors and dead workers are
+     launched as often as phase 2 launched them (the wrappers count under
+     one lock), no worker failed (the farm's errors and dead workers are
      empty and each aligner did chunks) and no retry pass; its wall beside
      one aligner's, each run twice (farm, one, one, farm);
   2b. the same slice on the device-seeding route
@@ -94,6 +95,21 @@ last line, and without CUDA the script fails at once:
      both routes, identical; each run's wall, counts, peak memory and
      launches (from its `stats` event) are printed, and K1-K4 must launch
      on the native route, K2 and K5 on the device route;
+  3f. past one logical hit batch and one target block, each run's `stats`
+     printed as in phase 3e: the pairwise CLI on scale-8 with
+     --seq_block_size 2000000 --max_hits 131072 (4 target and 5 query
+     blocks) on the native route, the device route, two aligners and four
+     shards on cuda:0, and the RM CLI on scale-4's reference with
+     --seq_block_size 1000000 --max_hits 131072 on both routes and two
+     shards, the seven processes at once: each output must hash to what
+     the JAX CLI writes for the same options (the SCALE8_SPLIT_* and
+     SCALE4_RM_SPLIT_* constants), with max_hits cutting most
+     chunk-strands' hits; then block-1000 (bench_inputs: two 500 Mbp
+     target blocks of 20 Mbp records, a 1 Mbp query) through the pairwise
+     CLI with --wga_chunk_size 500000 on the native route: 2 target
+     blocks, every chunk-strand past 2^26 hits and cut by max_hits, the
+     bytes the device route wrote for it (BLOCK1000_SHA256), the peak
+     memory under NATIVE_PEAK_LIMIT;
   4. the measurement scripts, in process with small repetition counts:
      exp_gather_variants.main, probe_env.main and probe_extension.main
      over every probe; any exception fails the run, and each of S1-S4's
@@ -171,6 +187,34 @@ SCALE4_RM_SHA256 = ("abbcda35b6dc97862c2d2a1faf43a3f0"
                     "bd6dfa13122dbd61f0b610c3345529e5")
 SCALE4_INTERVALS = 1009
 SCALE_CLI_TIMEOUT = 300
+# phase 3f: the scale-8 pair with --seq_block_size 2000000 (4 target and
+# 5 query blocks) and scale-4's reference through the RM CLI with
+# --seq_block_size 1000000, both with --max_hits SPLIT_MAX_HITS (most
+# chunk-strands' hits cut into several logical batches): sha256 of what the
+# JAX CLIs write for them on the CPU (JAX_PLATFORMS=cpu python -m
+# segalign_tpu.cli.run_segalign ref8.fa qry8.fa --nogapped --markend
+# --seq_block_size 2000000 --max_hits 131072 --output out.segments, and
+# segalign_tpu.cli.run_segalign_repeat_masker ref4.fa --markend
+# --seq_block_size 1000000 --max_hits 131072 --output out.seg), with their
+# HSP and interval counts (on an 8-core CPU, both at once: 58 and 48 min)
+SPLIT_MAX_HITS = 131072
+SCALE8_SPLIT_SHA256 = ("adf9a18e824586714c286428df27db49"
+                       "9621793539096a817586cc64c6edd96e")
+SCALE8_SPLIT_HSPS = 16708
+SCALE4_RM_SPLIT_SHA256 = ("d88d6f9f102fdc35a722a513c66eeb14"
+                          "a087757071b3b941122e9e02cda3c9a2")
+SCALE4_RM_SPLIT_INTERVALS = 1017
+# block-1000 (two 500 Mbp target blocks, a 1 Mbp query) through the
+# pairwise CLI (--nogapped --markend --wga_chunk_size 500000) on the native
+# route: its output must hash to what the device route wrote for it on an
+# H100 (SEGALIGN_DEVICE_SEEDING=1, 206900 HSPs; the native route wrote the
+# same bytes in that run), and its peak device memory may not pass
+# NATIVE_PEAK_LIMIT (only the programs' candidates wait on the card)
+BLOCK1000_SHA256 = ("d7a0656f31e9c5a8da322c051e1b17e4"
+                    "897951b39499858d3324f30c3f73aac1")
+BLOCK1000_HSPS = 206900
+BLOCK1000_TIMEOUT = 300
+NATIVE_PEAK_LIMIT = 1.5 * 2**30
 # seeds, hits and HSPs of the JAX package's bench.py on the density sweep
 # (2 Mbp) and legacy-planted (4 Mbp): device-independent integers
 SWEEP_COUNTS = {"repeat-0.5x": (51639822, 6188443, 296),
@@ -342,78 +386,94 @@ def bound_ms(nbytes: float, ops: float = 0.0):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def run_clis(jobs: list, d: str) -> dict:
-    """Run the port's CLIs, all at once, each in a process and a directory
-    of its own under d: jobs of (label, module, argv, env). Fails unless
-    every one exits 0 without the farm's retry pass. Returns {label:
-    (output bytes, sha256, seconds to its exit)}."""
+def run_clis_logged(jobs: list, timeout: float = SCALE_CLI_TIMEOUT
+                    ) -> dict:
+    """Run the port's CLIs, all at once, each in a process of its own with
+    SEGALIGN_LOG_JSON=1: jobs of (label, module, argv, env, cwd). Fails
+    unless every one exits 0 within `timeout` seconds without the farm's
+    retry pass. Returns {label: its output bytes and their sha256, its
+    wall and the pipeline's `stats` event (seeds, hits, HSPs, the branches
+    the run took, the kernels' launches in the process, each card's peak
+    memory)}."""
     t0 = time.time()
     procs = []
     try:
-        for i, (label, module, argv, env) in enumerate(jobs):
-            cwd = os.path.join(d, f"cli_{i}")
+        for label, module, argv, env, cwd in jobs:
             shutil.rmtree(cwd, ignore_errors=True)
             os.makedirs(cwd)
-            procs.append(subprocess.Popen(
+            out = os.path.join(cwd, "out.txt")
+            procs.append((label, out, subprocess.Popen(
                 [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}",
-                 *argv, "--output", os.path.join(cwd, "out.txt")], cwd=cwd,
-                env=dict(os.environ, PYTHONPATH=ROOT, **env),
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                 *argv, "--output", out], cwd=cwd,
+                env=dict(os.environ, PYTHONPATH=ROOT, SEGALIGN_LOG_JSON="1",
+                         **env),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
         got = {}
-        for (label, *_), p in zip(jobs, procs):
-            _, err = p.communicate(timeout=max(600 - (time.time() - t0), 1))
+        for label, out, p in procs:
+            try:
+                _, err = p.communicate(
+                    timeout=max(timeout - (time.time() - t0), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"{label} ran past {timeout} s")
             secs = time.time() - t0
             if p.returncode != 0:
                 fail(f"{label} exited {p.returncode}:\n{err[-3000:]}")
             if "after device failure" in err:
                 fail(f"{label} retried chunks after a device failure:\n"
                      f"{err[-3000:]}")
-            with open(p.args[-1], "rb") as f:
+            stats = [json.loads(ln) for ln in err.splitlines()
+                     if ln.startswith("{") and '"event":"stats"' in ln]
+            if len(stats) != 1:
+                fail(f"{label} logged {len(stats)} stats events")
+            with open(out, "rb") as f:
                 data = f.read()
-            got[label] = (data, hashlib.sha256(data).hexdigest(), secs)
+            got[label] = dict(data=data,
+                              sha256=hashlib.sha256(data).hexdigest(),
+                              secs=secs, stats=stats[0])
         return got
     finally:
-        for p in procs:
+        for _, _, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
 
 
+def run_clis(jobs: list, d: str) -> dict:
+    """run_clis_logged of jobs of (label, module, argv, env), each in a
+    directory of its own under d, within 600 s. Returns {label: (output
+    bytes, sha256, seconds to its exit)}."""
+    got = run_clis_logged(
+        [(label, module, argv, env, os.path.join(d, f"cli_{i}"))
+         for i, (label, module, argv, env) in enumerate(jobs)], 600)
+    return {k: (v["data"], v["sha256"], v["secs"]) for k, v in got.items()}
+
+
 def run_cli_logged(label: str, module: str, argv: list, env: dict,
-                   cwd: str) -> dict:
-    """Run one of the port's CLIs in a process of its own, in cwd, with
-    SEGALIGN_LOG_JSON=1; fail unless it exits 0 without the farm's retry
-    pass. Returns its output bytes and their sha256, its wall and the
-    pipeline's `stats` event (seeds, hits, HSPs, the kernels' launches in
-    the process, each card's peak memory)."""
-    shutil.rmtree(cwd, ignore_errors=True)
-    os.makedirs(cwd)
-    out = os.path.join(cwd, "out.txt")
-    t0 = time.time()
-    try:
-        p = subprocess.run(
-            [sys.executable, "-m", f"segalign_tpu_torch.cli.{module}",
-             *argv, "--output", out], cwd=cwd,
-            env=dict(os.environ, PYTHONPATH=ROOT, SEGALIGN_LOG_JSON="1",
-                     **env),
-            capture_output=True, text=True, timeout=SCALE_CLI_TIMEOUT)
-    except subprocess.TimeoutExpired as e:
-        fail(f"{label} ran past {SCALE_CLI_TIMEOUT} s:\n"
-             f"{(e.stderr or b'')[-3000:]}")
-    secs = time.time() - t0
-    if p.returncode != 0:
-        fail(f"{label} exited {p.returncode}:\n{p.stderr[-3000:]}")
-    if "after device failure" in p.stderr:
-        fail(f"{label} retried chunks after a device failure:\n"
-             f"{p.stderr[-3000:]}")
-    stats = [json.loads(ln) for ln in p.stderr.splitlines()
-             if ln.startswith("{") and '"event":"stats"' in ln]
-    if len(stats) != 1:
-        fail(f"{label} logged {len(stats)} stats events")
-    with open(out, "rb") as f:
-        data = f.read()
-    return dict(data=data, sha256=hashlib.sha256(data).hexdigest(),
-                secs=secs, stats=stats[0])
+                   cwd: str, timeout: float = SCALE_CLI_TIMEOUT) -> dict:
+    """run_clis_logged of one CLI: its output, wall and `stats` event."""
+    return run_clis_logged([(label, module, argv, env, cwd)],
+                           timeout)[label]
+
+
+def scale_line(label: str, r: dict, module_is_rm: bool, card: str) -> str:
+    """One CLI run of phases 3e and 3f as a line: what it wrote, its
+    counts, walls, branches, peak memory, launches and sha256."""
+    st = r["stats"]
+    what = (f"{r['data'].count(b'\n') - 2} intervals" if module_is_rm
+            else f"{r['data'].count(b'\n') - 1} segments")
+    peak = st["peak_device_bytes"]
+    return (f"{label}: {what}, {st['hsps']} HSPs, {st['seeds']} seeds, "
+            f"{st['seed_hits']} hits, process wall {r['secs']:.1f} s "
+            f"(ungapped stage {st['seconds']} s, "
+            f"{st['seed_hits'] / max(st['seconds'], 1e-9):.3g} hits/s), "
+            f"{st['ref_blocks']} target blocks, {st['chunk_strands']} "
+            f"chunk-strands, {st['hit_batches']} hit batches, "
+            f"{st['split_chunks']} cut by max_hits, hits a chunk-strand "
+            f"{st['min_chunk_hits']}-{st['max_chunk_hits']}, "
+            f"max_memory_allocated "
+            f"{max(peak) / 2**30 if peak else 0:.2f} GiB, launches "
+            f"{st['launches']}, sha256 {r['sha256']} [{card}]")
 
 
 def sha256_file(path: str) -> str:
@@ -981,17 +1041,21 @@ def main():
                  "one aligner")
     if "after device failure" in said + said2:
         fail("the farm retried chunks, and no failure was injected")
-    # the wrappers count without a lock: under two worker threads a count
-    # can lose increments, so these are lower bounds
     print(f"farm: {EXPECTED_HSPS} HSPs, every chunk-strand equal to one "
           f"aligner's; no worker failed, chunks by aligner {chunks_by} and "
           f"{farm.chunks_by}; wall farm {dt_f1:.3f} and {dt_f2:.3f} s, one aligner "
           f"{dt:.3f} (phase 2, first run), {dt_o1:.3f} and {dt_o2:.3f} s; "
-          f"launches (lower bounds) {launches_f} [{card}]", flush=True)
+          f"launches {launches_f} [{card}]", flush=True)
     for k in ("gather_rows", "gather_rows_tile", "first_scan",
               "window_scan"):
         if launches_f[k] == 0:
             fail(f"{k} was not launched by the farm")
+    # the same chunks launch the same kernels whichever aligner takes them,
+    # and the wrappers count under one lock
+    if launches_f != launches or by_T["farm_pair"] != by_T["native_pair"]:
+        fail(f"the farm's launches {launches_f} (K3 by T "
+             f"{by_T['farm_pair']}) are not one aligner's {launches} "
+             f"({by_T['native_pair']}) on the same chunks")
     del farm, results_f
 
     # ---- phase 2b: the device-seeding route on the same slice
@@ -1247,17 +1311,7 @@ def main():
                            os.path.join(d, f"cli_{i}"))
         scale[label] = r
         st = r["stats"]
-        what = (f"{r['data'].count(b'\n') - 2} intervals" if module == rm
-                else f"{r['data'].count(b'\n') - 1} segments")
-        peak = st["peak_device_bytes"]
-        print(f"{label}: {what}, {st['hsps']} HSPs, {st['seeds']} seeds, "
-              f"{st['seed_hits']} hits, process wall {r['secs']:.1f} s "
-              f"(ungapped stage {st['seconds']} s, "
-              f"{st['seed_hits'] / st['seconds']:.3g} hits/s), "
-              f"max_memory_allocated "
-              f"{max(peak) / 2**30 if peak else 0:.2f} GiB, launches "
-              f"{st['launches']}, sha256 {r['sha256']} [{card}]",
-              flush=True)
+        print(scale_line(label, r, module == rm, card), flush=True)
         by_slice[label] = st["launches"]
         for k in need:
             if st["launches"][k] == 0:
@@ -1282,6 +1336,101 @@ def main():
           f"the four routes' {n16} HSPs byte-identical, the RM's two routes "
           f"identical; phase 3e {time.time() - t3e:.1f} s [{card}]",
           flush=True)
+
+    # ---- phase 3f: past one hit batch and one target block
+    print("phase 3f: the CLIs over several target blocks and logical hit "
+          "batches: scale-8 and scale-4's reference against the JAX CLIs "
+          "on every route, block-1000 (two 500 Mbp target blocks)",
+          flush=True)
+    t3f = time.time()
+    split = ["--max_hits", str(SPLIT_MAX_HITS)]
+    pw_split = [*fa["8"], *nog, "--seq_block_size", "2000000", *split]
+    rm_split = [fa["4"][0], "--markend", "--seq_block_size", "1000000",
+                *split]
+    # label: (module, argv, env, kernels that must launch); all at once
+    split_jobs = {
+        "scale-8 split (native route)": (pw, pw_split, {}, native_k),
+        "scale-8 split (device route)": (pw, pw_split, dev_env, device_k),
+        "scale-8 split, two aligners on cuda:0": (
+            pw, [*pw_split, *on0, "--num_devices", "2"], {}, native_k),
+        "scale-8 split, sharded table, four shards on cuda:0": (
+            pw, [*pw_split, "--sharded_table", *on0, "--num_devices", "4"],
+            {}, device_k),
+        "scale-4 rm split (native route)": (rm, rm_split, {}, native_k),
+        "scale-4 rm split (device route)": (rm, rm_split, dev_env,
+                                            device_k),
+        "scale-4 rm split, sharded table, two shards on cuda:0": (
+            rm, [*rm_split, "--sharded_table", *on0, "--num_devices", "2"],
+            {}, device_k),
+    }
+    got = run_clis_logged([
+        (label, module, argv, env, os.path.join(d, f"split_{i}"))
+        for i, (label, (module, argv, env, _)) in enumerate(
+            split_jobs.items())])
+    for label, (module, _, _, need) in split_jobs.items():
+        r = got[label]
+        st = r["stats"]
+        print(scale_line(label, r, module == rm, card), flush=True)
+        by_slice[label] = st["launches"]
+        for k in need:
+            if st["launches"][k] == 0:
+                fail(f"{label}: {k} was not launched")
+        # the RM's 1 Mbp blocks of a 4 Mbp genome of 8 records (and its
+        # separators) make 5, the pair's 2 Mbp blocks of 1 Mbp records 4
+        want, n_want, blocks = (
+            (SCALE4_RM_SPLIT_SHA256, SCALE4_RM_SPLIT_INTERVALS, 5)
+            if module == rm else
+            (SCALE8_SPLIT_SHA256, SCALE8_SPLIT_HSPS, 4))
+        n = r["data"].count(b"\n") - (2 if module == rm else 1)
+        if r["sha256"] != want or n != n_want:
+            fail(f"{label}: sha256 {r['sha256']} and {n} lines, the JAX "
+                 f"CLI's {want} and {n_want}")
+        if st["ref_blocks"] != blocks or \
+                2 * st["split_chunks"] <= st["chunk_strands"]:
+            fail(f"{label}: {st['ref_blocks']} target blocks (expected "
+                 f"{blocks}), {st['split_chunks']} of "
+                 f"{st['chunk_strands']} chunk-strands cut by max_hits "
+                 f"(expected most)")
+    print(f"scale-8 and scale-4 split: every route hashes to the JAX CLIs'; "
+          f"{time.time() - t3f:.1f} s [{card}]", flush=True)
+
+    t0 = time.time()
+    fa["1000"] = (os.path.join(d, "ref1000.fa"),
+                  os.path.join(d, "qry1000.fa"))
+    bench_inputs.write_scale_inputs("block-1000", *fa["1000"])
+    print(f"block-1000 written in {time.time() - t0:.1f} s", flush=True)
+    label = "block-1000 cli (native route)"
+    r = run_cli_logged(label, pw, [*fa["1000"], *nog, "--wga_chunk_size",
+                                   "500000"], {},
+                       os.path.join(d, "block_1000"),
+                       timeout=BLOCK1000_TIMEOUT)
+    st = r["stats"]
+    print(scale_line(label, r, False, card), flush=True)
+    by_slice[label] = st["launches"]
+    for k in native_k:
+        if st["launches"][k] == 0:
+            fail(f"{label}: {k} was not launched")
+    # every chunk-strand past DEFAULT_MAX_HITS (2^26): its hits cut into
+    # three batches or more
+    if st["ref_blocks"] != 2 or st["min_chunk_hits"] <= 1 << 26 or \
+            st["split_chunks"] != st["chunk_strands"]:
+        fail(f"{label}: {st['ref_blocks']} target blocks, hits a "
+             f"chunk-strand from {st['min_chunk_hits']}, "
+             f"{st['split_chunks']} of {st['chunk_strands']} cut by "
+             f"max_hits: expected 2 blocks, every chunk-strand past 2^26 "
+             f"hits and cut")
+    if r["sha256"] != BLOCK1000_SHA256 or st["hsps"] != BLOCK1000_HSPS:
+        fail(f"{label}: sha256 {r['sha256']} and {st['hsps']} HSPs, the "
+             f"device route's {BLOCK1000_SHA256} and {BLOCK1000_HSPS}")
+    peak = max(st["peak_device_bytes"])
+    if peak > NATIVE_PEAK_LIMIT:
+        fail(f"{label}: max_memory_allocated {peak / 2**30:.2f} GiB, over "
+             f"{NATIVE_PEAK_LIMIT / 2**30} GiB")
+    print(f"block-1000: the device route's bytes, native peak "
+          f"{peak / 2**30:.2f} GiB; phase 3f {time.time() - t3f:.1f} s "
+          f"[{card}]", flush=True)
+    for f in fa["1000"]:
+        os.remove(f)
 
     # ---- phase 4: the measurement scripts
     print("phase 4: the measurement scripts, in process", flush=True)

@@ -278,11 +278,14 @@ def write_records_fasta(path: str, codes, names, lengths,
 # scale-8 and scale-16 (1.6 Mbp) end inside the 250 kb chunks and the
 # 10 Mbp lastz intervals. scale-4 is scale-8's layout at 4 Mbp: the size at
 # which the JAX repeat masker's CLI finishes on a CPU within the hour.
+# block-1000 is two full default target blocks (records of 20 Mbp: the
+# 25th closes a block), the whole-genome shape on the target side.
 SCALE_INPUTS = {
     "scale-4": (4, 4, ("chr", 8), ("q", 5)),
     "scale-8": (8, 8, ("chr", 8), ("q", 5)),
     "scale-16": (16, 16, ("chr", 16), ("q", 10)),
     "block-500": (500, 1, ("chr", 25), ("q", 1)),
+    "block-1000": (1000, 1, ("chr", 50), ("q", 1)),
 }
 
 

@@ -12,7 +12,9 @@ pipeline event a single JSON object on stderr, e.g.
 Events: run_start, ref_block, query_block, interval_done, stats,
 run_end (pairwise); rm_block, interval_done, stats, run_end (RM). The
 port's stats event also carries each kernel wrapper's launch count in the
-process (`launches`) and every card's peak memory (`peak_device_bytes`).
+process (`launches`), every card's peak memory (`peak_device_bytes`) and
+the branches the run took (PipelineStats: target blocks, chunk-strands,
+logical hit batches, the fewest and most hits of a chunk-strand).
 """
 
 from __future__ import annotations

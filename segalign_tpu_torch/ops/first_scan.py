@@ -13,6 +13,7 @@ import torch
 
 from .. import _build
 from .extend3 import check_tensors, init_state, scan_raw_window
+from .launches import count_launch
 
 
 def _check(r2, q2, loc_r, loc_q, valid, sub, W):
@@ -67,7 +68,7 @@ def first_scan(r2, q2, loc_r, loc_q, valid, sub, xdrop: int, ref_len: int,
         loc_q.data_ptr(), valid.data_ptr(), sub.data_ptr(), B, W, int(xdrop),
         int(ref_len), int(query_len), int(with_counts), *ptrs,
         _build.stream_of(r2.device))
-    first_scan.launches += 1
+    count_launch(first_scan)
     return outs[0], outs[1]
 
 

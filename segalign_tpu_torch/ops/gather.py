@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .launches import count_launch
 
 TILE_ROWS = 128  # rows that share one staged span in gather_rows_tile
 MAX_T = 1024     # a span is at most T x 128 bytes, T in (0, MAX_T]
@@ -64,7 +65,7 @@ def gather_rows(seq: torch.Tensor, starts: torch.Tensor,
     if seq.device.type == "cpu":
         return gather_rows_plain(seq, starts, W)
     out = _launch("sa_gather_rows", seq, starts, W)
-    gather_rows.launches += 1
+    count_launch(gather_rows)
     return out
 
 
@@ -82,9 +83,7 @@ def gather_rows_tile(seq: torch.Tensor, starts: torch.Tensor, W: int,
     if seq.device.type == "cpu":
         return gather_rows_plain(seq, starts, W)
     out = _launch("sa_gather_rows_tile", seq, starts, W, T)
-    gather_rows_tile.launches += 1
-    by_T = gather_rows_tile.launches_by_T
-    by_T[T] = by_T.get(T, 0) + 1
+    count_launch(gather_rows_tile, T)
     return out
 
 

@@ -29,6 +29,7 @@ import torch
 
 from .. import _build
 from .gather import gather_rows_plain
+from .launches import count_launch
 
 ALIGN = 1024   # the TPU's HBM slice alignment, kept for the superset
 AWIN = 2048
@@ -96,7 +97,7 @@ def _s1(name, launcher, plain, doc):
         _build.launch(launcher, seq.data_ptr(), starts.data_ptr(),
                       starts.numel(), W, out.data_ptr(),
                       _build.stream_of(seq.device))
-        wrapper.launches += 1
+        count_launch(wrapper)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
@@ -133,7 +134,7 @@ def gather_two_sided(seq_r: torch.Tensor, seq_q: torch.Tensor,
     _build.launch("sa_gather_two_sided", seq_r.data_ptr(), seq_q.data_ptr(),
                   starts2.data_ptr(), B, W, r.data_ptr(), q.data_ptr(),
                   _build.stream_of(seq_r.device))
-    gather_two_sided.launches += 1
+    count_launch(gather_two_sided)
     return r, q
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .launches import count_launch
 
 
 def scale2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +30,7 @@ def scale2(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     _build.launch("sa_scale2", x.data_ptr(), x.numel(), out.data_ptr(),
                   _build.stream_of(x.device))
-    scale2.launches += 1
+    count_launch(scale2)
     return out
 
 

@@ -14,6 +14,7 @@ import torch
 from .. import _build
 from .extend3 import STATE_KEYS, check_tensors
 from .extend3 import scan_raw_window as window_scan_plain
+from .launches import count_launch
 
 
 def check_window(r, q, loc_r, loc_q, st, sub, W):
@@ -57,7 +58,7 @@ def window_scan(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
     if r.device.type == "cpu":
         return window_scan_plain(*args, **kw)
     out = launch_window("sa_window_scan", *args, **kw)
-    window_scan.launches += 1
+    count_launch(window_scan)
     return out
 
 

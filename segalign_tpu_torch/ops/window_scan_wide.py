@@ -12,6 +12,7 @@ int32 sums, as the TPU kernel's roll scans are.
 from __future__ import annotations
 
 from .extend3 import scan_ext_window as window_scan_wide_plain
+from .launches import count_launch
 from .window_scan import check_window, launch_window
 
 
@@ -26,7 +27,7 @@ def window_scan_wide(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
     if r.device.type == "cpu":
         return window_scan_wide_plain(*args, **kw)
     out = launch_window("sa_window_scan_wide", *args, **kw)
-    window_scan_wide.launches += 1
+    count_launch(window_scan_wide)
     return out
 
 

@@ -82,6 +82,10 @@ class MultiDeviceAligner:
         return len(self.aligners)
 
     def set_ref(self, ref_codes: np.ndarray, tables=None):
+        """tables: an optional precomputed (index_table, pos_table). Every
+        aligner lets go of the old block before the new table is built."""
+        for a in self.aligners:
+            a.drop_ref()
         if tables is None:
             tables = build_seed_table(ref_codes, *self._table_args)
         for a in self.aligners:

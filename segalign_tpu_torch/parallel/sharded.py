@@ -66,7 +66,8 @@ from ..ops.hits import expand_hits
 from ..ops.padding import pad_sequence
 from ..ops.seeding import bucket_ranges, chunk_kmers
 from ..pipeline.device import (DEFAULT_MAX_HITS, PAD, ChunkResult,
-                               _batch_limits, finalize_batch, on_device)
+                               _batch_limits, _ends_of_limits,
+                               finalize_batch, on_device)
 from .multi import resolve_devices
 
 
@@ -284,6 +285,12 @@ class ShardedAligner:
             shared[name] = padded.to(d)
 
     def set_ref(self, ref_codes: np.ndarray, tables=None):
+        """tables: an optional precomputed (index_table, pos_table). The
+        old block's shards and padded reference go first, so that no
+        device holds two blocks."""
+        self.index_shards = self.pos_shards = None
+        for shared in self._shared.values():
+            shared.pop("ref", None)
         self.ref_len = len(ref_codes)
         if tables is None:
             tables = build_seed_table(ref_codes, self.step, self.shape_pos,
@@ -381,7 +388,10 @@ class ShardedAligner:
         cum = torch.cumsum(counts_all, 0, dtype=torch.int32)
         if num_hits == 0:
             return ChunkResult(empty, 0, num_seeds)
-        limit_slots, _ = _batch_limits(cum, num_hits, self.max_hits)
+        limit_slots, limit_hits = _batch_limits(cum, num_hits,
+                                                self.max_hits)
+        num_batches = len(_ends_of_limits(limit_slots, limit_hits,
+                                          cum.shape[0], num_hits))
         limit_slots = torch.tensor(limit_slots, dtype=torch.int32)
 
         # 5-6. expansion and extension on each shard; candidates to the host
@@ -420,4 +430,4 @@ class ShardedAligner:
             gather_to(rows, "cpu", group).numpy(), hspthresh=self.hspthresh,
             noentropy=self.noentropy, rm_mode=self.rm_mode, rev=rev,
             ref_len=self.ref_len)
-        return ChunkResult(hsps, num_hits, num_seeds)
+        return ChunkResult(hsps, num_hits, num_seeds, num_batches)

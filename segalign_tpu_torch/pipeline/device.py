@@ -6,9 +6,10 @@ seeding routes, chosen when the aligner is made:
 
   - native (the default): the host seeds each chunk with the native
     seeder (native/seeder.cpp); the device extends the
-    hits in programs of at most HBUF rows (ops/extend_fused.py) and
-    compacts and dedups the candidates (_pack_compact); the host recomputes
-    the entropy counts of the candidates that need them.
+    hits in programs of at most HBUF rows (ops/extend_fused.py), keeps
+    each program's candidate rows only (_program_candidates), and compacts
+    and dedups them (_pack_compact); the host recomputes the entropy
+    counts of the candidates that need them.
   - device seeding (device_seeding=True, or SEGALIGN_DEVICE_SEEDING=1 when
     the caller passes None, read on each construction as the JAX aligner
     reads it): the device seeds each chunk
@@ -130,6 +131,9 @@ class ChunkResult:
     hsps: np.ndarray       # (n, 4) int64: ref_start, query_start, len, score
     num_hits: int
     num_seeds: int
+    # logical hit batches (the reference's max_hits batching) the chunk's
+    # hits were cut into; 0 without hits
+    num_batches: int = 0
 
 
 @dataclass
@@ -149,9 +153,29 @@ class PendingChunk:
     seg_ends: np.ndarray
 
 
+def _program_candidates(fin: dict, g0: int) -> dict:
+    """One extension program's candidate rows only, as soon as the program
+    is extended: orig (g0 + row), rs, qs, length, total and counts, with
+    candidate all true. The per-hit tensors go, so a chunk-strand's device
+    memory grows with its candidates, not with its hits."""
+    sel = torch.nonzero(fin["candidate"]).squeeze(1)
+    out = {k: fin[k][sel] for k in ("candidate", "rs", "qs", "length",
+                                     "total", "counts")}
+    out["orig"] = g0 + sel
+    return out
+
+
 def _pack_compact(fins, seg_ends: torch.Tensor) -> torch.Tensor:
     """Candidates of all of a chunk-strand's programs as one (n, 9) int32
     block in ascending hit order, with exact duplicates removed.
+
+    fins: the programs' fields in ascending hit order, each cut to its
+    candidate rows by _program_candidates (the JAX package packs every
+    row of every program; that keeps the same rows in the same order:
+    the programs' rows stay in ascending orig, a non-candidate only ever
+    sorts after every candidate, and the dedup compares live neighbours
+    only, so the kept rows and their order do not depend on whether the
+    non-candidates are there).
 
     A candidate is dropped when another candidate of the same logical hit
     batch has the same extent (rs, qs, length). Identical extents have
@@ -219,7 +243,14 @@ def _batch_ends(cum: torch.Tensor, num_hits: int, max_hits: int) -> list:
     chain of _plan_limits and a last batch that ends at num_hits, dropped
     when its seed position repeats the chain's last one."""
     poss, vals = _batch_limits(cum, num_hits, max_hits)
-    limit_pos = poss + [cum.shape[0] - 1]
+    return _ends_of_limits(poss, vals, cum.shape[0], num_hits)
+
+
+def _ends_of_limits(poss: list, vals: list, num_slots: int,
+                    num_hits: int) -> list:
+    """_batch_ends from _batch_limits' (poss, vals) over num_slots seed
+    slots."""
+    limit_pos = poss + [num_slots - 1]
     hit_bound = vals + [num_hits]
     if limit_pos[-1] == limit_pos[-2]:
         hit_bound.pop()
@@ -315,14 +346,25 @@ class DeviceAligner:
                                        transition)
         self.ref_len = 0
         self.q_len = 0
+        self.drop_ref()
 
     def _upload(self, codes: np.ndarray, right_pad: int = 0
                 ) -> torch.Tensor:
         return torch.from_numpy(pad_sequence(codes, PAD, right_pad)).to(
             self.device)
 
+    def drop_ref(self):
+        """Let go of the reference block's state: the padded reference and,
+        on the device route, the index and position tables on the device,
+        and the host's copies."""
+        self.ref_pad = self.index_table = self.pos_table = None
+        self._ref_host = self._host_tables = None
+
     def set_ref(self, ref_codes: np.ndarray, tables=None):
-        """tables: an optional precomputed (index_table, pos_table)."""
+        """tables: an optional precomputed (index_table, pos_table). The
+        old block's state goes first, so that the device never holds two
+        blocks (the device route's position table is 4 bytes a base)."""
+        self.drop_ref()
         self.ref_len = len(ref_codes)
         self._ref_host = np.ascontiguousarray(ref_codes, np.uint8)
         self.ref_pad = self._upload(ref_codes)
@@ -466,7 +508,8 @@ class DeviceAligner:
 
     def _dispatch_rows(self, ref_loc: np.ndarray, query_loc: np.ndarray,
                        q_pad: torch.Tensor, tm: _StageTimer) -> list:
-        """One extension program per span of at most HBUF hits."""
+        """One extension program per span of at most HBUF hits; each
+        program's candidate rows (_program_candidates), in hit order."""
         W = self.window
         fins = []
         for g0 in range(0, len(ref_loc), self.HBUF):
@@ -490,8 +533,8 @@ class DeviceAligner:
                 self.ref_pad, q_pad, d_r, d_q, len(r), self.sub, self.xdrop,
                 self.hspthresh, self.ref_len, self.q_len, pad=PAD, W=W,
                 W_CONT=CONT_W, with_counts=False, qtile=qtile, rtile=rtile)
-            fin["orig"] = torch.arange(g0, g0 + len(r), device=self.device)
-            fins.append(fin)
+            fins.append(_program_candidates(fin, g0))
+            del fin   # the per-hit fields go before the next program's
             self._sync()
             tm.add("extend", time.time() - t0)
         return fins
@@ -499,9 +542,10 @@ class DeviceAligner:
     def finish_chunk(self, p: PendingChunk) -> ChunkResult:
         """Fetch a dispatched chunk's candidates; split them into logical
         batches; finalize entropy and dedup on the host."""
+        nb = len(p.seg_ends)
         if p.out is None or p.out.shape[0] == 0:
             return ChunkResult(np.zeros((0, 4), np.int64), p.num_hits,
-                               p.num_seeds)
+                               p.num_seeds, nb)
         tm = _StageTimer()
         t0 = time.time()
         allrows = p.out.cpu().numpy().astype(np.int64)
@@ -511,7 +555,7 @@ class DeviceAligner:
         tm.add("host_dedup", time.time() - t0)
         tm.dump(f"finish {p.chunk_start}:{p.chunk_end} rev={p.rev} "
                 f"cand={len(allrows)}")
-        return ChunkResult(hsps, p.num_hits, p.num_seeds)
+        return ChunkResult(hsps, p.num_hits, p.num_seeds, nb)
 
     def _split_and_finalize(self, allrows: np.ndarray,
                             p: PendingChunk) -> np.ndarray:
@@ -604,4 +648,4 @@ class DeviceAligner:
         hsps = np.concatenate(all_out) if all_out else empty
         tm.dump(f"chunk {chunk_start}:{chunk_end} rev={rev} "
                 f"hits={num_hits}")
-        return ChunkResult(hsps, num_hits, num_seeds)
+        return ChunkResult(hsps, num_hits, num_seeds, len(ends))

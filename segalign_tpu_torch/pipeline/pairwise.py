@@ -41,6 +41,44 @@ class PipelineStats:
     seed_table_ms: float = 0.0
     extension_ms: float = 0.0
     intervals_done: int = 0
+    # the branches a run took: target blocks, and of its chunk-strands the
+    # logical hit batches (the reference's max_hits batching) in all, the
+    # chunk-strands whose hits max_hits cut (three batches or more: the
+    # plan gives the last seed's hits a batch of their own whenever a
+    # chunk-strand has hits) and the fewest and most hits of one (None
+    # before the first)
+    ref_blocks: int = 0
+    chunk_strands: int = 0
+    hit_batches: int = 0
+    split_chunks: int = 0
+    min_chunk_hits: Optional[int] = None
+    max_chunk_hits: Optional[int] = None
+
+    def add_chunk(self, r) -> None:
+        """Count one chunk-strand's ChunkResult."""
+        self.num_seeds += r.num_seeds
+        self.num_seed_hits += r.num_hits
+        self.num_hsps += len(r.hsps)
+        self.chunk_strands += 1
+        self.hit_batches += r.num_batches
+        self.split_chunks += r.num_batches >= 3
+        self.min_chunk_hits = (r.num_hits if self.min_chunk_hits is None
+                               else min(self.min_chunk_hits, r.num_hits))
+        self.max_chunk_hits = max(self.max_chunk_hits or 0, r.num_hits)
+
+    def log(self, seconds: float) -> None:
+        """The `stats` event: the counts, the ungapped stage's seconds, the
+        kernels' launches in the process and each card's peak memory."""
+        log_event("stats", seeds=self.num_seeds,
+                  seed_hits=self.num_seed_hits, hsps=self.num_hsps,
+                  seconds=round(seconds, 3), ref_blocks=self.ref_blocks,
+                  chunk_strands=self.chunk_strands,
+                  hit_batches=self.hit_batches,
+                  split_chunks=self.split_chunks,
+                  min_chunk_hits=self.min_chunk_hits,
+                  max_chunk_hits=self.max_chunk_hits,
+                  launches=launch_counts(),
+                  peak_device_bytes=peak_device_bytes())
 
 
 def run_pairwise(cfg: Config, out_dir: str, *, device,
@@ -120,6 +158,7 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
     do_minus = cfg.strand in ("minus", "both")
     manifest = Manifest(out_dir, resume=resume)
 
+    stats.ref_blocks = len(target.blocks)
     t_start = time.time()
     log("\nStart alignment ...")
     log_event("run_start", mode="pairwise", ref=cfg.reference_filename,
@@ -162,9 +201,7 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
                 results = aligner.map_chunks(fw_work + rc_work)
                 fw_parts, rc_parts = [], []
                 for k, r in enumerate(results):
-                    stats.num_seeds += r.num_seeds
-                    stats.num_seed_hits += r.num_hits
-                    stats.num_hsps += len(r.hsps)
+                    stats.add_chunk(r)
                     if len(r.hsps):
                         (fw_parts if k < len(fw_work)
                          else rc_parts).append(r.hsps)
@@ -188,10 +225,7 @@ def run_pairwise(cfg: Config, out_dir: str, *, device,
                           seconds=round(time.time() - t1, 3))
 
     manifest.close()
-    log_event("stats", seeds=stats.num_seeds, seed_hits=stats.num_seed_hits,
-              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3),
-              launches=launch_counts(),
-              peak_device_bytes=peak_device_bytes())
+    stats.log(time.time() - t_start)
     log_event("run_end", mode="pairwise")
     if cfg.debug:
         log(f"Time elapsed (complete pipeline): "

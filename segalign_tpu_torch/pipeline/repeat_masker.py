@@ -36,7 +36,6 @@ from ..io.blocks import Chrom
 from ..io.encode import encode, revcomp_codes
 from ..io.fasta import read_fasta
 from ..logging_util import log_event
-from ..ops.launches import launch_counts, peak_device_bytes
 from .manifest import Manifest
 
 from ..parallel.multi import ChunkWork, MultiDeviceAligner
@@ -235,6 +234,7 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
     do_minus = cfg.strand in ("minus", "both")
     manifest = Manifest(out_dir, resume=resume)
 
+    stats.ref_blocks = len(blocks)
     t_start = time.time()
     log("\nStart alignment ...")
     log_event("run_start", mode="repeat_masker", seq=cfg.seq_filename,
@@ -275,9 +275,7 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
                     if mcs < mce:
                         work.append(ChunkWork(mcs, mce, True, window))
             for r in aligner.map_chunks(work):
-                stats.num_seeds += r.num_seeds
-                stats.num_seed_hits += r.num_hits
-                stats.num_hsps += len(r.hsps)
+                stats.add_chunk(r)
                 if len(r.hsps):
                     ev_starts.append(r.hsps[:, 1])
                     ev_ends.append(r.hsps[:, 1] + r.hsps[:, 2])
@@ -308,10 +306,7 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str, *, device,
                       seconds=round(time.time() - t1, 3))
 
     manifest.close()
-    log_event("stats", seeds=stats.num_seeds, seed_hits=stats.num_seed_hits,
-              hsps=stats.num_hsps, seconds=round(time.time() - t_start, 3),
-              launches=launch_counts(),
-              peak_device_bytes=peak_device_bytes())
+    stats.log(time.time() - t_start)
     log_event("run_end", mode="repeat_masker")
     if cfg.debug:
         log(f"Time elapsed (complete pipeline): "

@@ -48,6 +48,9 @@ SMALL_SHA256 = {
     "block-500": (
         "113353f20928269bf3d0a076f875d8bdb0c21e6b7080889916aa07487e4b027e",
         "e5ab85497d2a30434704e8a9e05800122aa88fd90482cfb124f23e4fb6d6beb2"),
+    "block-1000": (
+        "9ff0fe6749f6315e812929232c2ee4993fc6fc640f314b84a588d3c09392baf5",
+        "e5ab85497d2a30434704e8a9e05800122aa88fd90482cfb124f23e4fb6d6beb2"),
 }
 # the CLI pair: the repeat-1x generator at 0.4 x 0.4 Mbp, the reference in
 # 4 records and the query in 3, aligned without transitions; the repeat
