@@ -40,7 +40,11 @@ last line, and without CUDA the script fails at once:
      every 250 kb chunk of bench_inputs' repeat-1x pair (4 Mbp x 4 Mbp,
      rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
-     run is printed and must be above 0;
+     run is printed and must be above 0; then the serial form
+     (SEGALIGN_OVERLAP=0: seeding, extension and finish in turn on one
+     thread) and the default form (the next chunk seeded on a thread of
+     its own) once more each: every chunk-strand's array equal to the
+     first run's, both walls printed;
   2c. the same slice through the farm, MultiDeviceAligner with two
      aligners on cuda:0 (two worker threads and their finishers, one
      stream): every chunk-strand's array equal to phase 2's, K1-K4
@@ -623,6 +627,7 @@ def main():
                                                     DeviceAligner)
     from segalign_tpu_torch.pipeline.repeat_masker import run_repeat_masker
     from segalign_tpu_torch import bench_cells, bench_inputs
+    from segalign_tpu_torch.bench import _env
     from segalign_tpu_torch.config import RMConfig
     from segalign_tpu_torch.io.encode import revcomp_codes
     CHUNK = bench_inputs.CHUNK
@@ -1022,6 +1027,20 @@ def main():
         torch.cuda.synchronize()
         sys.stderr.write(err.getvalue())
         return out, time.time() - t0, err.getvalue()
+
+    # the serial form against the default, which seeds the next chunk on a
+    # thread of its own while this thread extends the current one
+    with _env(SEGALIGN_OVERLAP="0"):
+        results_s, dt_s, _ = timed(al, depth=bench_inputs.DEPTH)
+    same_results(results_s, results, "the serial map_chunks differs from "
+                 "the seeding thread's")
+    results_s, dt_a, _ = timed(al, depth=bench_inputs.DEPTH)
+    same_results(results_s, results, "the seeding thread's second run "
+                 "differs from its first")
+    del results_s
+    print(f"seeding one chunk ahead: every chunk-strand equal to the serial "
+          f"form's; wall serial {dt_s:.3f} s, seeding ahead {dt_a:.3f} s "
+          f"({dt:.3f} s in the first run) [{card}]", flush=True)
 
     # ---- phase 2c: the farm, two aligners on the one card
     print("phase 2c: MultiDeviceAligner(device='cuda:0', num_devices=2)"

@@ -5,7 +5,8 @@ Counterpart of segalign_tpu/pipeline/device.py DeviceAligner and its two
 seeding routes, chosen when the aligner is made:
 
   - native (the default): the host seeds each chunk with the native
-    seeder (native/seeder.cpp); the device extends the
+    seeder (native/seeder.cpp; in map_chunks on a thread of its own, one
+    chunk ahead of the device); the device extends the
     hits in programs of at most HBUF rows (ops/extend_fused.py), keeps
     each program's candidate rows only (_program_candidates), and compacts
     and dedups them (_pack_compact); the host recomputes the entropy
@@ -46,7 +47,9 @@ has the device route's separate d2h. Kernels run asynchronously, so a
 device stage's time is its dispatch time unless SEGALIGN_SYNC=1, which
 synchronizes the device before each device stage's clock stops.
 SEGALIGN_TIMING=1 prints each chunk's stages to stderr. Both are read on
-every call.
+every call. The stages add up to the wall in the serial form of
+map_chunks only (SEGALIGN_OVERLAP=0): otherwise seeds and mask run on the
+seeding thread while the dispatch thread's stages run.
 """
 
 from __future__ import annotations
@@ -85,8 +88,8 @@ CONT_W = 2048
 PAD = max(FIRST_W, CONT_W)  # sequence padding that covers every window
 
 # Cumulative host time of each stage over every chunk in this process, in
-# seconds (module docstring); two threads add to it under map_chunks'
-# finisher, hence the lock.
+# seconds (module docstring); map_chunks' seeding, dispatch and finisher
+# threads add to it at once, hence the lock.
 STAGE_TOTALS: dict = {}
 _STAGE_LOCK = threading.Lock()
 # While a list, every stage is also appended to it as (name, start, end)
@@ -158,6 +161,22 @@ class PendingChunk:
     # logical hit-batch boundaries (the reference's max_hits batching) as
     # end offsets into the hit stream
     seg_ends: np.ndarray
+
+
+@dataclass
+class SeededChunk:
+    """One chunk-strand's hits on the host, seeded and kept to the RM
+    window, not yet extended: what the native route's seeding stage hands
+    to the dispatch thread. No hits to extend: ref_loc is empty."""
+    chunk_start: int
+    chunk_end: int
+    rev: bool
+    num_seeds: int
+    num_hits: int
+    ref_loc: np.ndarray    # (n,) int32
+    query_loc: np.ndarray  # (n,) int32
+    seg_ends: np.ndarray   # as PendingChunk's, over the kept hits
+    tm: _StageTimer
 
 
 def _program_candidates(fin: dict, g0: int) -> dict:
@@ -402,14 +421,21 @@ class DeviceAligner:
                    ) -> List[ChunkResult]:
         """Process chunks in order; results in work order.
 
-        On the native route a finisher thread fetches each chunk's
-        candidates and runs the host finalize and dedup while this thread
-        seeds and extends the next chunks; at most `depth` finished-but-
-        unread chunks wait. SEGALIGN_OVERLAP=0 (read on every call) runs
-        the serial form instead: this thread finishes each chunk once
-        `depth` newer ones are dispatched. The device route runs chunk by
-        chunk, as in the JAX package. on_result(index, ChunkResult), when
-        given, fires as each chunk finishes, in work order."""
+        The native route runs three stages on three threads: a seeding
+        thread seeds the next chunk (_seed_chunk) while this thread
+        extends the current one (_extend_seeded), and a finisher thread
+        fetches each chunk's candidates and runs the host finalize and
+        dedup; at most `depth` finished-but-unread chunks wait. The
+        seeding runs one chunk ahead, no further: while a chunk is seeded,
+        the one before it waits for this thread, and no more.
+        SEGALIGN_OVERLAP=0 (read on every call) runs the serial form
+        instead: this thread seeds and extends each chunk
+        (dispatch_chunk), and finishes it once `depth` newer ones are
+        dispatched. The device route runs chunk by chunk, as in the JAX
+        package. on_result(index, ChunkResult), when given, fires as each
+        chunk finishes, in work order. An error of any stage raises here
+        at its chunk's turn, and no stage's work runs on after this
+        returns or raises."""
         if self.device_seeding:
             results = []
             for i, w in enumerate(work):
@@ -439,10 +465,19 @@ class DeviceAligner:
                 on_result(j, r)
             results.append(r)
 
-        with ThreadPoolExecutor(1) as ex:
-            for i, w in enumerate(work):
-                pend = self.dispatch_chunk(w.chunk_start, w.chunk_end,
-                                           w.rev, window=w.window)
+        def seed(w):
+            return self._seed_chunk(w.chunk_start, w.chunk_end, w.rev,
+                                    window=w.window)
+
+        # the seeding thread is the only caller of the seeder (its scratch
+        # buffers are the aligner's); leaving the block waits for it
+        with ThreadPoolExecutor(1) as ex, ThreadPoolExecutor(1) as seeding:
+            nxt = seeding.submit(seed, work[0]) if len(work) else None
+            for i in range(len(work)):
+                seeded = nxt.result()
+                if i + 1 < len(work):
+                    nxt = seeding.submit(seed, work[i + 1])
+                pend = self._extend_seeded(seeded)
                 futs.append((i, ex.submit(self._finish_on_device, pend)))
                 while len(futs) > depth:
                     drain()
@@ -470,7 +505,18 @@ class DeviceAligner:
                        window: Optional[Tuple[int, int]] = None
                        ) -> PendingChunk:
         """Host-native seeding and hit expansion, then the extension and
-        candidate compaction on the device (native route)."""
+        candidate compaction on the device (native route): _seed_chunk,
+        then _extend_seeded."""
+        return self._extend_seeded(
+            self._seed_chunk(chunk_start, chunk_end, rev, window))
+
+    def _seed_chunk(self, chunk_start: int, chunk_end: int, rev: bool,
+                    window: Optional[Tuple[int, int]] = None
+                    ) -> SeededChunk:
+        """The native route's host half of a chunk-strand: the native
+        seeder's hits, kept to the RM window when one is given, with the
+        logical batch ends counting the kept hits. It touches no tensor
+        and no device, so map_chunks runs it on a thread of its own."""
         tm = _StageTimer()
         t0 = time.time()
         q_host = self._q_rc_host if rev else self._q_fw_host
@@ -480,32 +526,41 @@ class DeviceAligner:
                 q_host, chunk_start, chunk_end - chunk_start, index_table,
                 pos_table, self.shape_pos, self.seed_size, self.max_hits))
         tm.add("seeds", time.time() - t0)
-        seg_ends = np.asarray(hit_bound, np.int64)
-        empty = PendingChunk(chunk_start, chunk_end, rev, num_seeds,
-                             num_hits, None, seg_ends)
+        s = SeededChunk(chunk_start, chunk_end, rev, num_seeds, num_hits,
+                        ref_loc, query_loc, np.asarray(hit_bound, np.int64),
+                        tm)
         if num_seeds == 0 or num_hits == 0:
-            return empty
+            return s
         t0 = time.time()
         if window is not None:
             # keep the hits in the window; the batch ends count kept hits
             keep = (ref_loc >= window[0]) & (ref_loc <= window[1])
             kept_cum = np.cumsum(keep, dtype=np.int64)
-            seg_ends = np.where(seg_ends > 0,
-                                kept_cum[np.maximum(seg_ends - 1, 0)], 0)
-            ref_loc, query_loc = ref_loc[keep], query_loc[keep]
+            s.seg_ends = np.where(s.seg_ends > 0,
+                                  kept_cum[np.maximum(s.seg_ends - 1, 0)],
+                                  0)
+            s.ref_loc, s.query_loc = ref_loc[keep], query_loc[keep]
         tm.add("mask", time.time() - t0)
-        if len(ref_loc) == 0:
-            return empty
-        q_pad = self.q_rc if rev else self.q_fw
-        fins = self._dispatch_rows(ref_loc, query_loc, q_pad, tm)
+        return s
+
+    def _extend_seeded(self, s: SeededChunk) -> PendingChunk:
+        """The native route's device half of a chunk-strand: the extension
+        programs over its hits and the compaction of their candidates, on
+        the calling thread's device."""
+        if len(s.ref_loc) == 0:
+            return PendingChunk(s.chunk_start, s.chunk_end, s.rev,
+                                s.num_seeds, s.num_hits, None, s.seg_ends)
+        q_pad = self.q_rc if s.rev else self.q_fw
+        fins = self._dispatch_rows(s.ref_loc, s.query_loc, q_pad, s.tm)
         t0 = time.time()
-        out = _pack_compact(fins, torch.from_numpy(seg_ends).to(self.device))
+        out = _pack_compact(fins, torch.from_numpy(s.seg_ends).to(
+            self.device))
         self._sync()
-        tm.add("pack", time.time() - t0)
-        tm.dump(f"dispatch {chunk_start}:{chunk_end} rev={rev} "
-                f"hits={num_hits}")
-        return PendingChunk(chunk_start, chunk_end, rev, num_seeds, num_hits,
-                            out, seg_ends)
+        s.tm.add("pack", time.time() - t0)
+        s.tm.dump(f"dispatch {s.chunk_start}:{s.chunk_end} rev={s.rev} "
+                  f"hits={s.num_hits}")
+        return PendingChunk(s.chunk_start, s.chunk_end, s.rev, s.num_seeds,
+                            s.num_hits, out, s.seg_ends)
 
     def _sync(self):
         """Under SEGALIGN_SYNC=1, wait for the device's work (CUDA only)."""
