@@ -23,7 +23,12 @@ last line, and without CUDA the script fails at once:
      K1 (first_scan) and K3 (gather_rows_tile) also at the narrower first
      window the benchmark's engine parity runs, W = 256 (K1 on 2^17 rows,
      counts off and on; K3 at 2W = 512 on the query-sorted and clustered
-     starts), timed into their rows' "variants";
+     starts), timed into their rows' "variants"; K1 on the sequences
+     (first_scan_seq, the paths' first window) on the same 2^17 hits at W =
+     512 and 256, counts off and on, beside the time of the launches it
+     took the place of (K3 on the query, K2 on the reference, then K1:
+     replaced_ms), and, checked only, on anchors within W of both ends of
+     both sequences;
      K3 also on starts that do not cluster (every row
      reads directly), and, checked only, on tiles whose span is exactly
      T x 128 bytes, one byte under and one over, on starts the clamp
@@ -40,15 +45,20 @@ last line, and without CUDA the script fails at once:
      every 250 kb chunk of bench_inputs' repeat-1x pair (4 Mbp x 4 Mbp,
      rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
-     run is printed and must be above 0; then the serial form
-     (SEGALIGN_OVERLAP=0: seeding, extension and finish in turn on one
-     thread) and the default form (the next chunk seeded on a thread of
+     run is printed, first_scan_seq's, K2's and K4's must be above 0, and
+     K1 on gathered rows and K3 must not launch (the path seeds on the
+     card and reads its first windows from the sequences); then the
+     serial form (SEGALIGN_OVERLAP=0: seeding, extension and finish in
+     turn on one thread) and the default form (the finish on a thread of
      its own) once more each: every chunk-strand's array equal to the
-     first run's, both walls printed;
+     first run's, both walls printed; then the default form with the
+     survivor steps cut to extend_fused.SURVIVOR_ROWS rows (as the path
+     runs) and uncut: the arrays equal, each run's peak memory and wall
+     printed, the cut's peak no higher;
   2c. the same slice through the farm, MultiDeviceAligner with two
      aligners on cuda:0 (two worker threads and their finishers, one
-     stream): every chunk-strand's array equal to phase 2's, K1-K4
-     launched as often as phase 2 launched them (the wrappers count under
+     stream): every chunk-strand's array equal to phase 2's, every kernel
+     launched as often as phase 2 launched it (the wrappers count under
      one lock), no worker failed (the farm's errors and dead workers are
      empty and each aligner did chunks) and no retry pass; its wall beside
      one aligner's, each run twice (farm, one, one, farm);
@@ -97,8 +107,9 @@ last line, and without CUDA the script fails at once:
      two aligners and the sharded table of four shards on cuda:0, whose
      outputs must be byte-identical; the RM CLI on scale-16's reference on
      both routes, identical; each run's wall, counts, peak memory and
-     launches (from its `stats` event) are printed, and K1-K4 must launch
-     on the native route, K2 and K5 on the device route;
+     launches (from its `stats` event) are printed, and first_scan_seq, K2
+     and K4 must launch on the native route, K2 and K5 on the device
+     route;
   3f. past one logical hit batch and one target block, each run's `stats`
      printed as in phase 3e: the pairwise CLI on scale-8 with
      --seq_block_size 2000000 --max_hits 131072 (4 target and 5 query
@@ -114,6 +125,14 @@ last line, and without CUDA the script fails at once:
      blocks, every chunk-strand past 2^26 hits and cut by max_hits, the
      bytes the device route wrote for it (BLOCK1000_SHA256), the peak
      memory under NATIVE_PEAK_LIMIT;
+  3g. the card's seeding against the host seeder at genome scale: the
+     block-500 pair (500 Mbp target, 1 Mbp query) on the native route,
+     where on a sample of chunk-strands, the first and the last chunk on
+     both strands, the seeds, hits and logical batch ends of the card's
+     seeding (_seed_chunk) and every hit the extension programs read
+     (_program_hits) must equal native.ChunkSeeder's, the host seeder
+     that is on no route; then one map_chunks over the pair, its wall,
+     HSPs, launches and peak memory printed;
   4. the measurement scripts, in process with small repetition counts:
      exp_gather_variants.main, probe_env.main and probe_extension.main
      over every probe; any exception fails the run, and each of S1-S4's
@@ -128,18 +147,19 @@ last line, and without CUDA the script fails at once:
      and HSPs on the density sweep and legacy-planted (the gates of
      BENCHMARK.json's cells), cold and steady, the engine parity
      identical:row+roww256:79hsps, a gapped stage of 8351 segments, 8351
-     accepted, a serial breakdown
-     that covers at least 80% of its wall, K1-K4 launched in every pass
-     (K1 and K3 also at W = 256) and a last line with exactly the JAX
-     bench's keys; each pass's Mbp/s, peak memory and launches and the
-     breakdown's stages are printed; then the same process with
+     accepted, a serial breakdown that covers at least 80% of its wall,
+     first_scan_seq, K2 and K4 launched in every timed pass
+     (first_scan_seq in the engine parity's two, at W = 512 and 256) and
+     a last line with exactly the JAX bench's keys; each pass's Mbp/s,
+     peak memory and launches and the breakdown's stages are printed;
+     then the same process with
      SEGALIGN_DEVICE_SEEDING=1 (the device-seeding route, which the
      aligner reads), held to the same counts, parity and gapped stage,
      with K2 and K5 launched in every pass; then the benchmark's first
      cell as BENCHMARK.json runs it (python -m segalign_tpu_torch.bench
      --cell pair-repeat1x-4M-native), which must pass its gate (the JAX
      package's counts and HSP digest, and the rescoring), print every
-     metric and launch K1-K4 in a pass;
+     metric and launch first_scan_seq, K2 and K4 in a pass;
   5. the kernels as one JSON line, then the result as the last line.
 
 Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
@@ -215,15 +235,17 @@ SCALE4_RM_SPLIT_INTERVALS = 1017
 # route: its output must hash to what the device route wrote for it on an
 # H100 (SEGALIGN_DEVICE_SEEDING=1, 206900 HSPs; the native route wrote the
 # same bytes in that run), and its peak device memory may not pass
-# NATIVE_PEAK_LIMIT (only the programs' candidates wait on the card). The
-# counts of the repeat-1x pair, the density sweep and legacy-planted and
+# NATIVE_PEAK_LIMIT: the seed tables of one 500 Mbp block, with which the
+# card seeds (a position table of at most 4 bytes a base and the 4^12
+# int32 index table), and 1.5 GiB (the programs' candidates). The counts
+# of the repeat-1x pair, the density sweep and legacy-planted and
 # scale-8's CLI output are the gates of BENCHMARK.json's cells
 # (bench_cells reads them), which the benchmark holds the port to as well.
 BLOCK1000_SHA256 = ("d7a0656f31e9c5a8da322c051e1b17e4"
                     "897951b39499858d3324f30c3f73aac1")
 BLOCK1000_HSPS = 206900
 BLOCK1000_TIMEOUT = 300
-NATIVE_PEAK_LIMIT = 1.5 * 2**30
+NATIVE_PEAK_LIMIT = 1.5 * 2**30 + 4 * 500_000_000 + 4 * 4**12
 # the engine parity of the JAX bench on the repeat-1x pair
 PARITY = "identical:row+roww256:79hsps"
 # the keys of the JAX bench's last line
@@ -606,8 +628,10 @@ def main():
 
     sys.path.insert(0, ROOT)
     from segalign_tpu_torch import _build
+    from segalign_tpu_torch.native import ChunkSeeder
+    from segalign_tpu_torch.ops import extend_fused
     from segalign_tpu_torch.ops.first_scan import first_scan, \
-        first_scan_plain
+        first_scan_plain, first_scan_seq, first_scan_seq_plain
     from segalign_tpu_torch.ops.gather import gather_rows, \
         gather_rows_plain, gather_rows_tile
     from segalign_tpu_torch.ops import gather_variants as gv
@@ -687,10 +711,12 @@ def main():
     ref_w, q_w = al.ref_pad.clone(), al.q_fw.clone()
     for t in (ref_w, q_w):
         t[torch.randint(pad, pad + n_r, (800,), device=dev)] = 7
-    # real hits: the first 2^17 of chunk 0's forward strand (query-sorted)
+    # real hits: the first 2^17 of chunk 0's forward strand (query-sorted),
+    # from the host seeder
     index_table, pos_table = al._host_tables
-    hits = al._seeder.seed(al._q_fw_host, 0, CHUNK, index_table, pos_table,
-                           al.shape_pos, al.seed_size, al.max_hits)
+    hits = ChunkSeeder(CHUNK, al.kmer_size, al.transition).seed(
+        al._q_fw_host, 0, CHUNK, index_table, pos_table, al.shape_pos,
+        al.seed_size, al.max_hits)
     B = 1 << 17
     if hits[5] < B:
         fail(f"chunk 0 has {hits[5]} hits, fewer than {B}")
@@ -835,6 +861,75 @@ def main():
                 variant=f"W={W256} counts={'on' if wc else 'off'}")
     del r2, q2
 
+    def covered_bytes(starts, width, lo, hi):
+        """The bytes of [lo, hi) that windows [s, s + width) cover, each
+        once: what a function must read to see them all."""
+        s0 = np.sort(starts.cpu().numpy().astype(np.int64))
+        s, e = np.clip(s0, lo, hi), np.clip(s0 + width, lo, hi)
+        run_end = np.maximum.accumulate(e)
+        # a window starts a new run where it begins past every earlier end
+        new = np.ones(len(s), bool)
+        new[1:] = s[1:] > run_end[:-1]
+        ends = np.append(run_end[np.nonzero(new)[0][1:] - 1], run_end[-1])
+        return int((ends - s[new]).sum())
+
+    # K1 on the sequences: the same hits, what the paths call
+    for Wf in (W, W256):
+        # the launches it took the place of: K3 on the query-sorted query
+        # windows, K2 on the reference's, K1 on the rows
+        def replaced():
+            q2 = gather_rows_tile(q_w, pad + loc_q - Wf, 2 * Wf, 64)
+            r2 = gather_rows(ref_w, pad + loc_r - Wf, 2 * Wf)
+            return first_scan(r2, q2, loc_r, loc_q, valid, sub, 910, n_r,
+                              n_q, W=Wf, with_counts=False)
+        replaced_ms = _graph_ms(replaced, 5)
+        seq_bytes = sum(
+            covered_bytes(pad + lc[valid] - Wf, 2 * Wf, pad, pad + n)
+            for lc, n in ((loc_r, n_r), (loc_q, n_q)))
+        for wc in (False, True):
+            args = (ref_w, q_w, loc_r, loc_q, valid, sub, 910, n_r, n_q)
+            kw = dict(pad=pad, W=Wf, with_counts=wc)
+            got = first_scan_seq(*args, **kw)
+            err = max(_state_err(g, w) for g, w in
+                      zip(got, first_scan_seq_plain(*args, **kw)))
+            alive = [int((~g["done"]).sum()) for g in got]
+            # the covered sequence bytes, 9 bytes of anchors and flag a
+            # row, both states out; the operations of both halves' lanes
+            ops = sum(scan_work(loc_r, loc_q, valid, 0, left, wc, Wf)[1]
+                      for left in (False, True))
+            label = f"W={Wf} counts={'on' if wc else 'off'}"
+            K.check("first_scan_seq",
+                    f"B={B} {label} (alive after: right {alive[0]}, left "
+                    f"{alive[1]}; sequence bytes covered {seq_bytes})", err,
+                    lambda: first_scan_seq(*args, **kw),
+                    lambda: first_scan_seq_plain(*args, **kw), 5,
+                    seq_bytes + B * (9 + 2 * STATE_BYTES), ops,
+                    variant=None if Wf == W else label)
+            if not wc:
+                row = K.rows["first_scan_seq"]
+                ms = (row if Wf == W else row["variants"][label])["ms"]
+                print(f"  first_scan_seq B={B} W={Wf}: kernel_ms {ms:.4f} "
+                      f"against {replaced_ms:.4f} for the K3 + K2 + K1 "
+                      f"launches it took the place of [{card}]", flush=True)
+                row.setdefault("replaced_ms", {})[f"W={Wf}"] = replaced_ms
+    # anchors within W of both ends of both sequences, checked only
+    edges = np.array([0, 1, 15, 16, 17, W - 1, W, W + 1])
+    e_r = np.concatenate([edges, n_r - edges, edges, n_r - edges])
+    e_q = np.concatenate([edges[::-1], n_q - edges, n_q - edges, edges])
+    e_r, e_q = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (e_r, e_q))
+    e_valid = torch.ones(e_r.numel(), dtype=torch.bool, device=dev)
+    for Wf in (W, W256):
+        for wc in (False, True):
+            args = (ref_w, q_w, e_r, e_q, e_valid, sub, 910, n_r, n_q)
+            kw = dict(pad=pad, W=Wf, with_counts=wc)
+            K.verify("first_scan_seq", f"B={e_r.numel()} W={Wf} counts="
+                     f"{'on' if wc else 'off'} anchors within W of both "
+                     f"ends of both sequences",
+                     max(_state_err(g, w) for g, w in zip(
+                         first_scan_seq(*args, **kw),
+                         first_scan_seq_plain(*args, **kw))))
+
     Bc, tile = 16384, W
     for wc in (False, True):
         for left in (False, True):
@@ -964,8 +1059,13 @@ def main():
     work = bench_inputs.chunk_work(query)
     wrappers = dict(gather_rows=gather_rows,
                     gather_rows_tile=gather_rows_tile,
-                    first_scan=first_scan, window_scan=window_scan,
+                    first_scan=first_scan, first_scan_seq=first_scan_seq,
+                    window_scan=window_scan,
                     window_scan_wide=window_scan_wide)
+    # the native route's kernels, and those it no longer launches (its
+    # first windows come from the sequences, not from gathered rows)
+    native_k = ("first_scan_seq", "gather_rows", "window_scan")
+    off_path = ("first_scan", "gather_rows_tile")
 
     def reset_counts():
         for w in wrappers.values():
@@ -1002,10 +1102,13 @@ def main():
           f"{by_T['native_pair']} [{card}]", flush=True)
     if n_hsps != EXPECTED_HSPS:
         fail(f"{n_hsps} HSPs, expected {EXPECTED_HSPS}")
-    for k in ("gather_rows", "gather_rows_tile", "first_scan",
-              "window_scan"):
+    for k in native_k:
         if launches[k] == 0:
             fail(f"{k} was not launched on the main path")
+    for k in off_path:
+        if launches[k] != 0:
+            fail(f"{k} was launched {launches[k]} times on the main path, "
+                 f"which reads its first windows from the sequences")
 
     def same_results(got, want, label):
         for w, a, b in zip(work, got, want):
@@ -1028,19 +1131,42 @@ def main():
         sys.stderr.write(err.getvalue())
         return out, time.time() - t0, err.getvalue()
 
-    # the serial form against the default, which seeds the next chunk on a
-    # thread of its own while this thread extends the current one
+    # the serial form against the default, which finishes each chunk on a
+    # thread of its own while this thread seeds and extends the next
     with _env(SEGALIGN_OVERLAP="0"):
         results_s, dt_s, _ = timed(al, depth=bench_inputs.DEPTH)
     same_results(results_s, results, "the serial map_chunks differs from "
-                 "the seeding thread's")
+                 "the default form's")
     results_s, dt_a, _ = timed(al, depth=bench_inputs.DEPTH)
-    same_results(results_s, results, "the seeding thread's second run "
+    same_results(results_s, results, "the default form's second run "
                  "differs from its first")
     del results_s
-    print(f"seeding one chunk ahead: every chunk-strand equal to the serial "
-          f"form's; wall serial {dt_s:.3f} s, seeding ahead {dt_a:.3f} s "
+    print(f"finisher thread: every chunk-strand equal to the serial form's; "
+          f"wall serial {dt_s:.3f} s, with the finisher thread {dt_a:.3f} s "
           f"({dt:.3f} s in the first run) [{card}]", flush=True)
+    # the survivor steps' cap: what it saves of the peak, and no result
+    # changes without it
+    peaks = {}
+    for cap in (extend_fused.SURVIVOR_ROWS, None):
+        saved = extend_fused.SURVIVOR_ROWS
+        extend_fused.SURVIVOR_ROWS = cap
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            results_c, dt_c, _ = timed(al, depth=bench_inputs.DEPTH)
+        finally:
+            extend_fused.SURVIVOR_ROWS = saved
+        peaks[cap] = (torch.cuda.max_memory_allocated(dev), dt_c)
+        same_results(results_c, results, f"survivor steps of at most {cap} "
+                     f"rows")
+    del results_c
+    (p_cap, t_cap), (p_all, t_all) = peaks.values()
+    print(f"survivor steps of at most {extend_fused.SURVIVOR_ROWS} rows: "
+          f"max_memory_allocated {p_cap / 2**30:.4f} GiB, wall {t_cap:.3f} "
+          f"s; uncut {p_all / 2**30:.4f} GiB, wall {t_all:.3f} s; every "
+          f"chunk-strand equal [{card}]", flush=True)
+    if p_cap > p_all:
+        fail("the survivor steps' cap raises the peak")
 
     # ---- phase 2c: the farm, two aligners on the one card
     print("phase 2c: MultiDeviceAligner(device='cuda:0', num_devices=2)"
@@ -1082,8 +1208,7 @@ def main():
           f"{farm.chunks_by}; wall farm {dt_f1:.3f} and {dt_f2:.3f} s, one aligner "
           f"{dt:.3f} (phase 2, first run), {dt_o1:.3f} and {dt_o2:.3f} s; "
           f"launches {launches_f} [{card}]", flush=True)
-    for k in ("gather_rows", "gather_rows_tile", "first_scan",
-              "window_scan"):
+    for k in native_k:
         if launches_f[k] == 0:
             fail(f"{k} was not launched by the farm")
     # the same chunks launch the same kernels whichever aligner takes them,
@@ -1319,8 +1444,6 @@ def main():
     nog = ["--nogapped", "--markend"]
     on0 = ["--device", "cuda:0"]
     dev_env = {"SEGALIGN_DEVICE_SEEDING": "1"}
-    native_k = ("first_scan", "gather_rows", "gather_rows_tile",
-                "window_scan")
     device_k = ("gather_rows", "window_scan_wide")
     # label: (module, argv, env, kernels that must launch)
     scale_jobs = {
@@ -1468,6 +1591,88 @@ def main():
     for f in fa["1000"]:
         os.remove(f)
 
+    # ---- phase 3g: the card's seeding against the host seeder, block-500
+    print("phase 3g: the native route's seeding on the card against the "
+          "host seeder (native.ChunkSeeder) at block-500, then one "
+          "map_chunks over it", flush=True)
+    t0 = time.time()
+    ref5, query5 = bench_inputs.load_inputs(
+        *bench_inputs.SCALE_INPUTS["block-500"][:2])
+    t_gen = time.time() - t0
+    t0 = time.time()
+    al5 = DeviceAligner(**settings)
+    al5.set_ref(ref5)
+    al5.set_query(query5, revcomp_codes(query5))
+    torch.cuda.synchronize()
+    print(f"block-500: {len(ref5) / 1e6:.0f} Mbp x {len(query5) / 1e6:.0f} "
+          f"Mbp drawn in {t_gen:.1f} s; seed table and upload "
+          f"{time.time() - t0:.1f} s, position table "
+          f"{al5.pos_table.numel() * 4 / 2**30:.2f} GiB on the card",
+          flush=True)
+    work5 = bench_inputs.chunk_work(query5)
+    seeder = ChunkSeeder(CHUNK, al5.kmer_size, al5.transition)
+    it5, pt5 = al5._host_tables
+    # the first and the last chunk, both strands
+    for w in (*work5[:2], *work5[-2:]):
+        t0 = time.time()
+        h_r, h_q, _, h_ends, h_seeds, h_hits = seeder.seed(
+            al5._q_rc_host if w.rev else al5._q_fw_host, w.chunk_start,
+            w.chunk_end - w.chunk_start, it5, pt5, al5.shape_pos,
+            al5.seed_size, al5.max_hits)
+        t_host = time.time() - t0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s5 = al5._seed_chunk(w.chunk_start, w.chunk_end, w.rev)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        label = f"chunk-strand {w.chunk_start}:{w.chunk_end} rev={w.rev}"
+        if (s5.num_seeds, s5.num_hits) != (h_seeds, h_hits) or \
+                not np.array_equal(s5.seg_ends, h_ends):
+            fail(f"{label}: the card's seeds, hits and batch ends "
+                 f"{s5.num_seeds}, {s5.num_hits}, {s5.seg_ends.tolist()} "
+                 f"are not the host seeder's {h_seeds}, {h_hits}, "
+                 f"{h_ends.tolist()}")
+        t0 = time.time()
+        d_r, d_q = (torch.from_numpy(a).to(dev) for a in (h_r, h_q))
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        rows = 0
+        for g0 in range(0, s5.num_hits, al5.HBUF):
+            r, q, orig = al5._program_hits(s5, g0)
+            g1 = g0 + orig.numel()
+            bad += ((r != d_r[g0:g1]).sum() + (q != d_q[g0:g1]).sum()
+                    + (orig != torch.arange(g0, g1, device=dev)).sum())
+            rows += orig.numel()
+        bad = int(bad)
+        if bad or rows != h_hits:
+            fail(f"{label}: {bad} of the card's hit fields differ from the "
+                 f"host seeder's, {rows} hits read of {h_hits}")
+        print(f"  {label}: {h_hits} hits in {len(h_ends)} batches, every "
+              f"hit the host seeder's; seeding on the host {t_host:.3f} s, "
+              f"on the card {t_card:.3f} s; compared in "
+              f"{time.time() - t0:.1f} s [{card}]", flush=True)
+        del d_r, d_q, h_r, h_q, s5
+    del it5, pt5
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    results5 = al5.map_chunks(work5, depth=bench_inputs.DEPTH)
+    torch.cuda.synchronize()
+    dt5 = time.time() - t0
+    launches5 = {k: w.launches for k, w in wrappers.items()}
+    by_slice["block500_native"] = launches5
+    print(f"block-500 native route: {len(work5)} chunk-strands, "
+          f"{sum(r.num_hits for r in results5)} hits, "
+          f"{sum(len(r.hsps) for r in results5)} HSPs, wall {dt5:.3f} s, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.4f} GiB, "
+          f"launches {launches5} [{card}]", flush=True)
+    for k in native_k:
+        if launches5[k] == 0:
+            fail(f"block-500: {k} was not launched")
+    del al5, results5, ref5, query5
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the measurement scripts
     print("phase 4: the measurement scripts, in process", flush=True)
     script_kernels = dict(
@@ -1486,8 +1691,12 @@ def main():
     torch.cuda.synchronize()
     for k, w in script_kernels.items():
         launches[k] = w.launches
+    # K3 is on no path since the native route reads its first windows from
+    # the sequences: its launches are probe_extension's
+    launches["gather_rows_tile"] = gather_rows_tile.launches
     print(f"scripts: {time.time() - t0:.1f} s, launches "
-          f"{dict((k, launches[k]) for k in script_kernels)} [{card}]",
+          f"{dict((k, launches[k]) for k in script_kernels)}, "
+          f"gather_rows_tile {launches['gather_rows_tile']} [{card}]",
           flush=True)
     for k in script_kernels:
         if launches[k] == 0:
@@ -1512,17 +1721,14 @@ def main():
                   flush=True)
         for ps in bench["passes"]:
             label = ps["label"]
-            # the parity's chunk-strand at W = 512 takes no tile gather (a
-            # block's windows overflow the span); at W = 256 one program
-            # does; the device route runs K2 and K5 in every pass
+            # the parity's one chunk-strand needs K1 and may need no
+            # survivor step; the device route runs K2 and K5 in every pass
             if route == "device":
                 need = ("gather_rows", "window_scan_wide")
             else:
-                need = {"parity-row": ("first_scan",),
-                        "parity-roww256": ("first_scan",
-                                           "gather_rows_tile")}.get(
-                            label, ("first_scan", "gather_rows",
-                                    "gather_rows_tile", "window_scan"))
+                need = native_k
+                if label.startswith("parity-"):
+                    need = ("first_scan_seq",)
             for k in need:
                 if ps["launches"].get(k, 0) == 0:
                     fail(f"bench {label} ({route} route): {k} was not "
@@ -1570,7 +1776,7 @@ def main():
               f"{bench['e2e_line']}; result {last} [{card}]", flush=True)
 
     # the benchmark's first cell, as BENCHMARK.json runs it: its gate,
-    # its metrics, and K1-K4 launched in a pass
+    # its metrics, and the native route's kernels launched in a pass
     c = next(iter(cells.values()))
     units = bench_cells.metric_units()
     print(f"phase 4b: python -m segalign_tpu_torch.bench --cell {c.name}",
@@ -1583,8 +1789,7 @@ def main():
     if not last["correct"] or any(last.get(k) is None for k in units):
         fail(f"cell {c.name}: result {last}, expected correct and every "
              f"metric of {list(units)}")
-    for k in ("first_scan", "gather_rows", "gather_rows_tile",
-              "window_scan"):
+    for k in native_k:
         if detail["launches"][k] == 0:
             fail(f"cell {c.name}: {k} was not launched in a pass")
     print(f"cell {c.name}: {time.time() - t0:.1f} s; "
@@ -1599,6 +1804,7 @@ def main():
     sources = dict(gather_rows="segalign_tpu_torch/csrc/gather.cu",
                    gather_rows_tile="segalign_tpu_torch/csrc/gather.cu",
                    first_scan="segalign_tpu_torch/csrc/first_scan.cu",
+                   first_scan_seq="segalign_tpu_torch/csrc/first_scan.cu",
                    window_scan="segalign_tpu_torch/csrc/window_scan.cu",
                    window_scan_wide=(
                        "segalign_tpu_torch/csrc/window_scan_wide.cu"),
@@ -1609,6 +1815,7 @@ def main():
         gather_rows="segalign_tpu/ops/extend_pallas.py:469",
         gather_rows_tile="segalign_tpu/ops/extend_pallas.py:553",
         first_scan="segalign_tpu/ops/extend_pallas.py:363",
+        first_scan_seq="segalign_tpu/ops/extend_pallas.py:363",
         window_scan="segalign_tpu/ops/extend_tiled.py:261",
         window_scan_wide="segalign_tpu/ops/extend_pallas.py:212",
         gather_dma_only="scripts/exp_gather_variants.py:109",
@@ -1616,14 +1823,21 @@ def main():
         gather_dbuf="scripts/exp_gather_variants.py:109",
         gather_two_sided="scripts/exp_gather_variants.py:169",
         scale2="scripts/probe_env.py:163, scripts/probe_extension.py:159")
-    # each kernel's launches on its path: phase 2 for K1-K4, phase 2b
-    # (the device-seeding route) for K5, phase 4 (the scripts) for S1-S4
+    # each kernel's launches on its path: phase 2 (the native route) for
+    # first_scan_seq, K2 and K4, phase 2b (the device-seeding route) for
+    # K5, phase 4 (the scripts) for K3 and S1-S4; K1 on gathered rows is
+    # on no path (phase 1 checks it)
     launches["window_scan_wide"] = launches_d["window_scan_wide"]
-    for name in ("first_scan", "gather_rows", "gather_rows_tile",
-                 "window_scan", "window_scan_wide", *script_kernels):
+    launched_by = dict(first_scan="no path", first_scan_seq="phase 2",
+                       gather_rows="phase 2", gather_rows_tile="phase 4",
+                       window_scan="phase 2", window_scan_wide="phase 2b")
+    for name in ("first_scan", "first_scan_seq", "gather_rows",
+                 "gather_rows_tile", "window_scan", "window_scan_wide",
+                 *script_kernels):
         r = K.rows[name]
         rows.append(dict(name=name, route="cuda", source=sources[name],
                          replaces=replaces[name], launches=launches[name],
+                         launched_by=launched_by.get(name, "phase 4"),
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          wrapper_ms=r["wrapper_ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1632,9 +1846,11 @@ def main():
                          launches_by_slice={
                              k: v[name] for k, v in by_slice.items()
                              if name in v}))
-        if "variants" in r:
-            # {shape: timings} of the narrower first window (W = 256)
-            rows[-1]["variants"] = r["variants"]
+        for k in ("variants", "replaced_ms"):
+            # {shape: timings} of the narrower first window (W = 256);
+            # {W: ms} of the launches first_scan_seq took the place of
+            if k in r:
+                rows[-1][k] = r[k]
         if name == "gather_rows_tile":
             # {slice: {T: launches}}: which stage size the paths ask for
             rows[-1]["launches_by_T"] = {

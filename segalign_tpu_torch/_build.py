@@ -46,6 +46,8 @@ _SIGNATURES = {
     "sa_gather_rows": [_P, ctypes.c_int64, _P, _I, _I, _P, _P],
     "sa_gather_rows_tile": [_P, ctypes.c_int64, _P, _I, _I, _I, _P, _P],
     "sa_first_scan": [_P] * 6 + [_I] * 6 + [_P] * 13,
+    "sa_first_scan_seq": [_P, ctypes.c_int64, _P, ctypes.c_int64]
+    + [_P] * 4 + [_I] * 7 + [_P] * 13,
     "sa_window_scan": [_P] * 11 + [_I] * 8 + [_P] * 7,
     "sa_window_scan_wide": [_P] * 11 + [_I] * 8 + [_P] * 7,
     "sa_gather_dma_only": [_P, _P, _I, _I, _P, _P],

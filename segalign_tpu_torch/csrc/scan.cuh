@@ -138,16 +138,22 @@ __device__ __forceinline__ T table_at(const T* table, uint32_t offset) {
 }
 
 // The thread's 16-byte block `blk` of the window in scan order (zeros past
-// the window) as table offsets.
-template <bool LEFT>
+// the window) as table offsets. SMEM: the window lies in shared memory (a
+// plain load; __ldg reads the global space only).
+template <bool LEFT, bool SMEM = false>
 __device__ __forceinline__ Offsets load_offsets(
     const uint4* __restrict__ r4, const uint4* __restrict__ q4, int blk,
     int nblk) {
   uint4 rv = make_uint4(0, 0, 0, 0), qv = rv;
   if (blk < nblk) {
     const int src = LEFT ? nblk - 1 - blk : blk;
-    rv = __ldg(r4 + src);
-    qv = __ldg(q4 + src);
+    if constexpr (SMEM) {
+      rv = r4[src];
+      qv = q4[src];
+    } else {
+      rv = __ldg(r4 + src);
+      qv = __ldg(q4 + src);
+    }
   }
   Offsets o;
 #pragma unroll
@@ -179,13 +185,13 @@ __device__ __forceinline__ int32_t scores_of(const Offsets& o,
 // every scan reads whatever the anchors say: a caller loads it before it
 // branches on the row's state, so that the window's first bytes travel
 // together with the anchors and the state, not after them.
-template <bool LEFT>
+template <bool LEFT, bool SMEM = false>
 __device__ __forceinline__ Offsets first_chunk(const uint8_t* __restrict__ r,
                                                const uint8_t* __restrict__ q,
                                                int W) {
-  return load_offsets<LEFT>(reinterpret_cast<const uint4*>(r),
-                            reinterpret_cast<const uint4*>(q),
-                            threadIdx.x & 31, W / 16);
+  return load_offsets<LEFT, SMEM>(reinterpret_cast<const uint4*>(r),
+                                  reinterpret_cast<const uint4*>(q),
+                                  threadIdx.x & 31, W / 16);
 }
 
 // Scan one window and write the row's new state. Called by all 32 threads
@@ -200,7 +206,8 @@ __device__ __forceinline__ Offsets first_chunk(const uint8_t* __restrict__ r,
 //   tab    : the block's tables (shared memory).
 //   cum0.. : the carried state of an alive row; counts0/cdel0 point at 4
 //            ints each.
-template <bool LEFT>
+//   SMEM   : r and q lie in shared memory (first_scan.cu's copies).
+template <bool LEFT, bool SMEM = false>
 __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
                             const uint8_t* __restrict__ q, int W,
                             const Tables& tab, int32_t xdrop, int32_t p0,
@@ -288,7 +295,7 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
       m = cmax > m ? cmax : m;
     }
     if (++ci >= nchunks) break;
-    o = load_offsets<LEFT>(r4, q4, ci * 32 + lane, nblk);
+    o = load_offsets<LEFT, SMEM>(r4, q4, ci * 32 + lane, nblk);
   }
   c = wadd(c, warp_sum(tail));
 
@@ -319,9 +326,9 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
   uint32_t a_in = 0, a_all = 0;
   const int ncount = (n_inb + CHUNK - 1) / CHUNK;
   for (int ci = 0; ci < ncount; ++ci) {
-    const Offsets o = ci == 0 ? o0
-                              : load_offsets<LEFT>(r4, q4, ci * 32 + lane,
-                                                   nblk);
+    const Offsets o =
+        ci == 0 ? o0
+                : load_offsets<LEFT, SMEM>(r4, q4, ci * 32 + lane, nblk);
     const int k0 = ci * CHUNK + lane * 16;
     const int nv = n_inb - k0, nin = kin - k0;
 #pragma unroll

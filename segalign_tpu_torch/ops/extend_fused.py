@@ -4,12 +4,13 @@ Counterpart of segalign_tpu/ops/extend_fused.py extend_fields_program and
 _extend_core: the same fields dict (candidate, rs, qs, length, total,
 counts) for the same rows.
 
-  1. One 2W-wide gather per sequence (gather_rows, or gather_rows_tile for
-     blocks whose windows cluster) and the first window of both directions
-     (first_scan).
+  1. The first window of both directions, read straight from the padded
+     sequences (first_scan_seq: what first_scan computes on one 2W-wide
+     gather per sequence, with no gathered rows).
   2. The survivors of each direction continue at W_CONT, compacted to the
      rows still alive before every step: a gather (gather_rows) and a scan
-     (window_scan) per step, until no row is alive.
+     (window_scan) per step of at most SURVIVOR_ROWS rows, until no row is
+     alive.
   3. finalize, with the right counts plus the left counts: both directions
      start from zero counts, and the count fold is additive in its start.
 
@@ -24,42 +25,54 @@ tensors run their plain versions.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .extend3 import STATE_KEYS, finalize
-from .first_scan import first_scan
-from .gather import gather_rows, gather_rows_tile
+from .first_scan import first_scan_seq
+from .gather import gather_rows
 from .window_scan import window_scan
 from .window_scan_wide import window_scan_wide
 
-Q_TILE = 64    # staged rows of 128 bytes for query-side first windows
-R_TILE = 512   # and for clustered reference-side ones
+# alive rows a survivor step of extend_fields_program gathers at most: the
+# step's windows take 2 x W_CONT bytes a row (64 MiB at 2^14 rows and W_CONT
+# 2048), and on a repeat-rich pair tens of thousands of a program's 2^17
+# hits can outlive their first windows (chip_smoke.py phase 2 prints the
+# peak with and without the cut); None runs each step whole
+SURVIVOR_ROWS = 1 << 14
 
 
 def run_survivors(seq_r, seq_q, loc_r, loc_q, st, sub, xdrop, ref_len,
                   query_len, *, pad, tile, W, left, with_counts,
-                  wide: bool = False):
+                  wide: bool = False, rows: Optional[int] = None):
     """Run the alive rows of one direction to completion, W-wide windows
     from offset `tile` on, compacted to the rows still alive before every
-    step. Each step is a gather (gather_rows) and a scan: window_scan on
-    the raw windows, or with `wide` window_scan_wide on windows in
-    extension order (the left ones flipped). Updates and returns `st` in
-    place (its tensors belong to this batch)."""
+    step; with `rows`, a step of more alive rows runs as several of at
+    most `rows` each (rows are independent: no field changes). Each step
+    is a gather (gather_rows) and a scan: window_scan on the raw windows,
+    or with `wide` window_scan_wide on windows in extension order (the
+    left ones flipped). Updates and returns `st` in place (its tensors
+    belong to this batch)."""
     scan = window_scan_wide if wide else window_scan
     idx = torch.nonzero(~st["done"]).squeeze(1)
     while idx.numel():
-        lr, lq = loc_r[idx], loc_q[idx]
         off = -tile - W if left else tile
-        r = gather_rows(seq_r, pad + lr + off, W)
-        q = gather_rows(seq_q, pad + lq + off, W)
-        if wide and left:
-            r, q = r.flip(1), q.flip(1)
-        cst = scan(r, q, lr, lq, {k: st[k][idx] for k in STATE_KEYS}, sub,
-                   xdrop, tile, ref_len, query_len, W=W, left=left,
-                   with_counts=with_counts)
-        for k in STATE_KEYS:
-            st[k][idx] = cst[k]
-        idx = idx[~cst["done"]]
+        alive = []
+        for part in (idx.split(rows) if rows else (idx,)):
+            lr, lq = loc_r[part], loc_q[part]
+            r = gather_rows(seq_r, pad + lr + off, W)
+            q = gather_rows(seq_q, pad + lq + off, W)
+            if wide and left:
+                r, q = r.flip(1), q.flip(1)
+            cst = scan(r, q, lr, lq, {k: st[k][part] for k in STATE_KEYS},
+                       sub, xdrop, tile, ref_len, query_len, W=W, left=left,
+                       with_counts=with_counts)
+            del r, q   # before the next part's windows
+            for k in STATE_KEYS:
+                st[k][part] = cst[k]
+            alive.append(part[~cst["done"]])
+        idx = torch.cat(alive) if len(alive) > 1 else alive[0]
         tile += W
     return st
 
@@ -67,31 +80,22 @@ def run_survivors(seq_r, seq_q, loc_r, loc_q, st, sub, xdrop, ref_len,
 def extend_fields_program(ref_pad, query_pad, ref_loc, query_loc, m: int,
                           sub, xdrop: int, hspthresh: int, ref_len: int,
                           query_len: int, *, pad: int, W: int = 512,
-                          W_CONT: int = 2048, with_counts: bool = False,
-                          qtile: bool = False, rtile: bool = False):
+                          W_CONT: int = 2048, with_counts: bool = False):
     """Extend rows [0, m) of a hit batch; rows past m are padding.
 
     ref_pad/query_pad: 1-D uint8 padded sequences with `pad` bytes before
     position 0 and at least `pad` after the end; ref_loc/query_loc: (B,)
-    int32 anchors; sub: (64,) int32 table. qtile/rtile select the tile
-    gather for the query/reference side of the first window (the caller
-    checks the spans with gather.tile_spans_ok)."""
+    int32 anchors; sub: (64,) int32 table."""
     if pad < max(W, W_CONT):
         raise ValueError(f"pad={pad} must cover W={W} and W_CONT={W_CONT}")
     B = ref_loc.shape[0]
-    dev = ref_loc.device
-    valid = torch.arange(B, device=dev) < m
+    valid = torch.arange(B, device=ref_loc.device) < m
     loc_r, loc_q = ref_loc, query_loc
-    r_start = pad + loc_r - W
-    q_start = pad + loc_q - W
-    r2 = (gather_rows_tile(ref_pad, r_start, 2 * W, R_TILE) if rtile
-          else gather_rows(ref_pad, r_start, 2 * W))
-    q2 = (gather_rows_tile(query_pad, q_start, 2 * W, Q_TILE) if qtile
-          else gather_rows(query_pad, q_start, 2 * W))
-    st_r, st_l = first_scan(r2, q2, loc_r, loc_q, valid, sub, xdrop, ref_len,
-                            query_len, W=W, with_counts=with_counts)
-    del r2, q2
-    kw = dict(pad=pad, tile=W, W=W_CONT, with_counts=with_counts)
+    st_r, st_l = first_scan_seq(ref_pad, query_pad, loc_r, loc_q, valid, sub,
+                                xdrop, ref_len, query_len, pad=pad, W=W,
+                                with_counts=with_counts)
+    kw = dict(pad=pad, tile=W, W=W_CONT, with_counts=with_counts,
+              rows=SURVIVOR_ROWS)
     st_r = run_survivors(ref_pad, query_pad, loc_r, loc_q, st_r, sub, xdrop,
                          ref_len, query_len, left=False, **kw)
     st_l = run_survivors(ref_pad, query_pad, loc_r, loc_q, st_l, sub, xdrop,

@@ -1,6 +1,6 @@
 """What the main path's kernels did in this process: each wrapper's launch
-count (K1-K5) and the cards' peak memory, for the benchmark's passes and
-the pipelines' `stats` event.
+count (K1 on gathered rows and on the sequences, K2-K5) and the cards'
+peak memory, for the benchmark's passes and the pipelines' `stats` event.
 
 Every wrapper (K1-K5, S1-S4) counts a launch with count_launch, under one
 lock: the farm's worker threads and their finishers launch at once, and a
@@ -30,11 +30,12 @@ def launch_counts(since=None) -> dict:
     """Each main-path wrapper's count now, less `since`'s (a count only
     grows: callers take differences, so nothing here resets it)."""
     # imported here: the wrappers import count_launch from this module
-    from .first_scan import first_scan
+    from .first_scan import first_scan, first_scan_seq
     from .gather import gather_rows, gather_rows_tile
     from .window_scan import window_scan
     from .window_scan_wide import window_scan_wide
-    kernels = dict(first_scan=first_scan, gather_rows=gather_rows,
+    kernels = dict(first_scan=first_scan, first_scan_seq=first_scan_seq,
+                   gather_rows=gather_rows,
                    gather_rows_tile=gather_rows_tile,
                    window_scan=window_scan,
                    window_scan_wide=window_scan_wide)

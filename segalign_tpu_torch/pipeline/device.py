@@ -2,23 +2,26 @@
 candidates -> HSPs.
 
 Counterpart of segalign_tpu/pipeline/device.py DeviceAligner and its two
-seeding routes, chosen when the aligner is made:
+routes, chosen when the aligner is made. Both seed each chunk on the
+device the same way (_seed_chunk: ops/seeding.py chunk_seeds, and a host
+chain of lower bounds over the seeds' hit counts that cuts the logical hit
+batches, _plan_limits) and expand each range of at most HBUF hits on the
+device (ops/hits.py expand_hits); they differ in the extension engine:
 
-  - native (the default): the host seeds each chunk with the native
-    seeder (native/seeder.cpp; in map_chunks on a thread of its own, one
-    chunk ahead of the device); the device extends the
-    hits in programs of at most HBUF rows (ops/extend_fused.py), keeps
-    each program's candidate rows only (_program_candidates), and compacts
-    and dedups them (_pack_compact); the host recomputes the entropy
-    counts of the candidates that need them.
+  - native (the default): each program of at most HBUF hits is extended by
+    the fused engine (ops/extend_fused.py: K1 on the sequences, then the
+    survivors' K2 and K4 steps), cut to its candidate rows
+    (_program_candidates), and a chunk-strand's candidates are compacted
+    and deduped on the device (_pack_compact); the host recomputes the
+    entropy counts of the candidates that need them. The host seeder
+    (native.ChunkSeeder, native/seeder.cpp) is not on this route: it is
+    the check that the tests and chip_smoke.py hold the device's hits to.
   - device seeding (device_seeding=True, or SEGALIGN_DEVICE_SEEDING=1 when
     the caller passes None, read on each construction as the JAX aligner
-    reads it): the device seeds each chunk
-    (ops/seeding.py); a host chain of lower bounds over the seeds' hit
-    counts cuts the logical hit batches (_plan_limits); each range of at
-    most HBUF hits is expanded (ops/hits.py), extended by the host-stepped
-    windowed engine (ops/extend3.py extend_hits_windowed, whose window step
-    is K5, ops/window_scan_wide.py) with the entropy counts on, and its
+    reads it; the name is the JAX package's): each range is extended by
+    the host-stepped windowed engine (ops/extend3.py
+    extend_hits_windowed, whose window step is K5,
+    ops/window_scan_wide.py) with the entropy counts on, and its
     candidates compacted and fetched.
 
 On both, the host finalizes entropy and dedups each logical hit batch with
@@ -35,11 +38,11 @@ device on the card.
 
 Stage times, as in the JAX aligner: every chunk adds the host time of its
 stages to STAGE_TOTALS (bench.py's serial breakdown reads it; cleared by
-reset_stage_totals). The native route's stages are seeds (the native
-seeder), mask (the RM window), h2d (the tile checks and the anchors'
-upload), extend (extend_fields_program), pack (_pack_compact), d2h (the
-candidates' fetch) and host_dedup (_split_and_finalize); the device
-route's are seeds (chunk_seeds), plan (_batch_ends), extend
+reset_stage_totals). Both routes' stages start with seeds (chunk_seeds
+and its counts' fetch) and plan (_batch_ends). The native route's go on
+with extend (expand_hits, the RM window and extend_fields_program), pack
+(_pack_compact), d2h (the candidates' fetch) and host_dedup
+(_split_and_finalize); the device route's with extend
 (_process_hit_range, whose fetch is part of it), nrange (1e-3 a hit range:
 a count) and host_dedup. The JAX stage recompact has no counterpart (it
 re-packs the fixed compaction width, which the port does not have), nor
@@ -48,8 +51,8 @@ device stage's time is its dispatch time unless SEGALIGN_SYNC=1, which
 synchronizes the device before each device stage's clock stops.
 SEGALIGN_TIMING=1 prints each chunk's stages to stderr. Both are read on
 every call. The stages add up to the wall in the serial form of
-map_chunks only (SEGALIGN_OVERLAP=0): otherwise seeds and mask run on the
-seeding thread while the dispatch thread's stages run.
+map_chunks only (SEGALIGN_OVERLAP=0): otherwise d2h and host_dedup run on
+the finisher thread while the dispatch thread's stages run.
 """
 
 from __future__ import annotations
@@ -68,13 +71,11 @@ import numpy as np
 import torch
 
 from ..index.seed_table import build_seed_table
-from ..native import (ChunkSeeder, check_chunk_hits, entropy_counts_host,
-                      get_lib)
+from ..native import check_chunk_hits, entropy_counts_host, get_lib
 from ..ops.dedup import dedup_pairwise, dedup_rm
 from ..ops.extend3 import extend_hits_windowed
-from ..ops.extend_fused import Q_TILE, R_TILE, extend_fields_program
+from ..ops.extend_fused import extend_fields_program
 from ..ops.finalize import finalize_candidates
-from ..ops.gather import tile_spans_ok
 from ..ops.hits import compact_mask, expand_hits
 from ..ops.padding import pad_sequence
 from ..ops.seeding import chunk_seeds
@@ -88,8 +89,8 @@ CONT_W = 2048
 PAD = max(FIRST_W, CONT_W)  # sequence padding that covers every window
 
 # Cumulative host time of each stage over every chunk in this process, in
-# seconds (module docstring); map_chunks' seeding, dispatch and finisher
-# threads add to it at once, hence the lock.
+# seconds (module docstring); map_chunks' dispatch and finisher threads
+# (and the farm's workers) add to it at once, hence the lock.
 STAGE_TOTALS: dict = {}
 _STAGE_LOCK = threading.Lock()
 # While a list, every stage is also appended to it as (name, start, end)
@@ -165,29 +166,35 @@ class PendingChunk:
 
 @dataclass
 class SeededChunk:
-    """One chunk-strand's hits on the host, seeded and kept to the RM
-    window, not yet extended: what the native route's seeding stage hands
-    to the dispatch thread. No hits to extend: ref_loc is empty."""
+    """One chunk-strand seeded on the device, not yet extended (_seed_chunk):
+    its seed slots' hit counts and where their hits lie, from which
+    expand_hits makes any range of its hit stream. Without hits cum,
+    starts and qpos are None."""
     chunk_start: int
     chunk_end: int
     rev: bool
     num_seeds: int
     num_hits: int
-    ref_loc: np.ndarray    # (n,) int32
-    query_loc: np.ndarray  # (n,) int32
-    seg_ends: np.ndarray   # as PendingChunk's, over the kept hits
+    cum: Optional[torch.Tensor]     # (S,) int32: inclusive hit cumsum
+    starts: Optional[torch.Tensor]  # (S,) int32: bucket starts
+    qpos: Optional[torch.Tensor]    # (S,) int32: query positions
+    # logical hit-batch ends into the hit stream (as PendingChunk's; every
+    # hit counts, the RM window's or not)
+    seg_ends: np.ndarray
+    window: Optional[Tuple[int, int]]
     tm: _StageTimer
 
 
-def _program_candidates(fin: dict, g0: int) -> dict:
+def _program_candidates(fin: dict, orig: torch.Tensor) -> dict:
     """One extension program's candidate rows only, as soon as the program
-    is extended: orig (g0 + row), rs, qs, length, total and counts, with
-    candidate all true. The per-hit tensors go, so a chunk-strand's device
-    memory grows with its candidates, not with its hits."""
+    is extended: orig (each row's index in the chunk-strand's hit stream,
+    from `orig`), rs, qs, length, total and counts, with candidate all
+    true. The per-hit tensors go, so a chunk-strand's device memory grows
+    with its candidates, not with its hits."""
     sel = torch.nonzero(fin["candidate"]).squeeze(1)
     out = {k: fin[k][sel] for k in ("candidate", "rs", "qs", "length",
                                      "total", "counts")}
-    out["orig"] = g0 + sel
+    out["orig"] = orig[sel]
     return out
 
 
@@ -348,9 +355,9 @@ class DeviceAligner:
         self.noentropy = noentropy
         self.chunk_size = chunk_size
         self.max_hits = max_hits
-        # rows per extension program (native route) or per expanded hit
-        # range (device route): bounds the device memory of the first
-        # window's byte windows
+        # hits per extension program (native route) or per expanded hit
+        # range (device route): bounds the device memory of a range's
+        # anchors and states
         self.HBUF = HBUF
         self.rm_mode = rm_mode
         if device_seeding is None:
@@ -364,12 +371,8 @@ class DeviceAligner:
             np.asarray(sub_mat, np.int32).reshape(-1)).to(self.device)
         # the host code of both routes (seed table, dedup, entropy counts)
         # runs in the native library: build and load it now, so that a
-        # failure raises here; the native route also seeds with it
+        # failure raises here
         get_lib()
-        self._seeder = None
-        if not device_seeding:
-            self._seeder = ChunkSeeder(chunk_size, self.kmer_size,
-                                       transition)
         self.ref_len = 0
         self.q_len = 0
         self.drop_ref()
@@ -380,16 +383,15 @@ class DeviceAligner:
             self.device)
 
     def drop_ref(self):
-        """Let go of the reference block's state: the padded reference and,
-        on the device route, the index and position tables on the device,
-        and the host's copies."""
+        """Let go of the reference block's state: the padded reference, the
+        index and position tables on the device, and the host's copies."""
         self.ref_pad = self.index_table = self.pos_table = None
         self._ref_host = self._host_tables = None
 
     def set_ref(self, ref_codes: np.ndarray, tables=None):
         """tables: an optional precomputed (index_table, pos_table). The
         old block's state goes first, so that the device never holds two
-        blocks (the device route's position table is 4 bytes a base)."""
+        blocks (the position table is 4 bytes a base)."""
         self.drop_ref()
         self.ref_len = len(ref_codes)
         self._ref_host = np.ascontiguousarray(ref_codes, np.uint8)
@@ -399,19 +401,17 @@ class DeviceAligner:
                                       self.seed_size, self.kmer_size)
         self._host_tables = tuple(np.ascontiguousarray(t, np.int32)
                                   for t in tables)
-        if self.device_seeding:
-            index_table, pos_table = self._host_tables
-            self.index_table = torch.from_numpy(index_table).to(self.device)
-            # expand_hits indexes the position table even with no hits
-            self.pos_table = torch.from_numpy(
-                pos_table if len(pos_table) else np.zeros(1, np.int32)).to(
-                    self.device)
+        index_table, pos_table = self._host_tables
+        self.index_table = torch.from_numpy(index_table).to(self.device)
+        # expand_hits indexes the position table even with no hits
+        self.pos_table = torch.from_numpy(
+            pos_table if len(pos_table) else np.zeros(1, np.int32)).to(
+                self.device)
 
     def set_query(self, fw_codes: np.ndarray, rc_codes: np.ndarray):
         self.q_len = len(fw_codes)
         # chunk_seeds reads chunk_size + seed_size bytes from a chunk start
-        right = (self.chunk_size + self.seed_size + 1 if self.device_seeding
-                 else 0)
+        right = self.chunk_size + self.seed_size + 1
         self.q_fw = self._upload(fw_codes, right)
         self.q_rc = self._upload(rc_codes, right)
         self._q_fw_host = np.ascontiguousarray(fw_codes, np.uint8)
@@ -421,21 +421,17 @@ class DeviceAligner:
                    ) -> List[ChunkResult]:
         """Process chunks in order; results in work order.
 
-        The native route runs three stages on three threads: a seeding
-        thread seeds the next chunk (_seed_chunk) while this thread
-        extends the current one (_extend_seeded), and a finisher thread
-        fetches each chunk's candidates and runs the host finalize and
-        dedup; at most `depth` finished-but-unread chunks wait. The
-        seeding runs one chunk ahead, no further: while a chunk is seeded,
-        the one before it waits for this thread, and no more.
-        SEGALIGN_OVERLAP=0 (read on every call) runs the serial form
-        instead: this thread seeds and extends each chunk
-        (dispatch_chunk), and finishes it once `depth` newer ones are
-        dispatched. The device route runs chunk by chunk, as in the JAX
-        package. on_result(index, ChunkResult), when given, fires as each
-        chunk finishes, in work order. An error of any stage raises here
-        at its chunk's turn, and no stage's work runs on after this
-        returns or raises."""
+        The native route runs two stages on two threads: this thread seeds
+        and extends each chunk on the device (dispatch_chunk), and a
+        finisher thread fetches each chunk's candidates and runs the host
+        finalize and dedup; at most `depth` dispatched-but-unread chunks
+        wait. SEGALIGN_OVERLAP=0 (read on every call) runs the serial form
+        instead: this thread also finishes each chunk, once `depth` newer
+        ones are dispatched. The device route runs chunk by chunk, as in
+        the JAX package. on_result(index, ChunkResult), when given, fires
+        as each chunk finishes, in work order. An error of any stage
+        raises here at its chunk's turn, and no stage's work runs on after
+        this returns or raises."""
         if self.device_seeding:
             results = []
             for i, w in enumerate(work):
@@ -465,19 +461,11 @@ class DeviceAligner:
                 on_result(j, r)
             results.append(r)
 
-        def seed(w):
-            return self._seed_chunk(w.chunk_start, w.chunk_end, w.rev,
-                                    window=w.window)
-
-        # the seeding thread is the only caller of the seeder (its scratch
-        # buffers are the aligner's); leaving the block waits for it
-        with ThreadPoolExecutor(1) as ex, ThreadPoolExecutor(1) as seeding:
-            nxt = seeding.submit(seed, work[0]) if len(work) else None
-            for i in range(len(work)):
-                seeded = nxt.result()
-                if i + 1 < len(work):
-                    nxt = seeding.submit(seed, work[i + 1])
-                pend = self._extend_seeded(seeded)
+        # leaving the block waits for the finisher's work in flight
+        with ThreadPoolExecutor(1) as ex:
+            for i, w in enumerate(work):
+                pend = self.dispatch_chunk(w.chunk_start, w.chunk_end, w.rev,
+                                           window=w.window)
                 futs.append((i, ex.submit(self._finish_on_device, pend)))
                 while len(futs) > depth:
                     drain()
@@ -504,54 +492,65 @@ class DeviceAligner:
     def dispatch_chunk(self, chunk_start: int, chunk_end: int, rev: bool,
                        window: Optional[Tuple[int, int]] = None
                        ) -> PendingChunk:
-        """Host-native seeding and hit expansion, then the extension and
-        candidate compaction on the device (native route): _seed_chunk,
-        then _extend_seeded."""
+        """Seeding, hit expansion, extension and candidate compaction of one
+        chunk-strand on the device (native route): _seed_chunk, then
+        _extend_seeded."""
         return self._extend_seeded(
             self._seed_chunk(chunk_start, chunk_end, rev, window))
 
     def _seed_chunk(self, chunk_start: int, chunk_end: int, rev: bool,
                     window: Optional[Tuple[int, int]] = None
                     ) -> SeededChunk:
-        """The native route's host half of a chunk-strand: the native
-        seeder's hits, kept to the RM window when one is given, with the
-        logical batch ends counting the kept hits. It touches no tensor
-        and no device, so map_chunks runs it on a thread of its own."""
+        """Both routes' first half of a chunk-strand: its seeds and their
+        hit counts on the device (chunk_seeds), the hit ceiling, and the
+        logical batch ends over its whole hit stream (_batch_ends)."""
         tm = _StageTimer()
         t0 = time.time()
-        q_host = self._q_rc_host if rev else self._q_fw_host
-        index_table, pos_table = self._host_tables
-        ref_loc, query_loc, _, hit_bound, num_seeds, num_hits = (
-            self._seeder.seed(
-                q_host, chunk_start, chunk_end - chunk_start, index_table,
-                pos_table, self.shape_pos, self.seed_size, self.max_hits))
-        tm.add("seeds", time.time() - t0)
-        s = SeededChunk(chunk_start, chunk_end, rev, num_seeds, num_hits,
-                        ref_loc, query_loc, np.asarray(hit_bound, np.int64),
-                        tm)
-        if num_seeds == 0 or num_hits == 0:
-            return s
+        q = self.q_rc if rev else self.q_fw
+        _, qpos, _, starts, cum, stats = chunk_seeds(
+            q, self.index_table, chunk_start, chunk_end - chunk_start,
+            CHUNK=self.chunk_size, seed_size=self.seed_size,
+            shape_pos=self.shape_pos, transition=self.transition, pad=PAD)
+        num_seeds, num_hits = stats.tolist()   # no seed, no hit
+        if num_seeds:
+            check_chunk_hits(num_hits, chunk_start, int32_cum=True)
+            tm.add("seeds", time.time() - t0)
+        if num_hits == 0:
+            return SeededChunk(chunk_start, chunk_end, rev, num_seeds, 0,
+                               None, None, None, np.zeros(0, np.int64),
+                               window, tm)
         t0 = time.time()
-        if window is not None:
-            # keep the hits in the window; the batch ends count kept hits
-            keep = (ref_loc >= window[0]) & (ref_loc <= window[1])
-            kept_cum = np.cumsum(keep, dtype=np.int64)
-            s.seg_ends = np.where(s.seg_ends > 0,
-                                  kept_cum[np.maximum(s.seg_ends - 1, 0)],
-                                  0)
-            s.ref_loc, s.query_loc = ref_loc[keep], query_loc[keep]
-        tm.add("mask", time.time() - t0)
-        return s
+        seg_ends = np.asarray(_batch_ends(cum, num_hits, self.max_hits),
+                              np.int64)
+        tm.add("plan", time.time() - t0)
+        return SeededChunk(chunk_start, chunk_end, rev, num_seeds, num_hits,
+                           cum, starts, qpos, seg_ends, window, tm)
+
+    def _program_hits(self, s: SeededChunk, g0: int):
+        """The hits that the extension program at g0 of a seeded
+        chunk-strand extends, on the device: (ref_loc, query_loc, orig),
+        each row's anchors and its index in the chunk-strand's hit stream,
+        for hits [g0, g0 + HBUF) in order; with an RM window only those
+        whose reference position lies in it."""
+        g1 = min(g0 + self.HBUF, s.num_hits)
+        ref_loc, query_loc, _ = expand_hits(
+            s.cum, s.starts, s.qpos, self.pos_table, g0, g1, self.seed_size,
+            HBUF=g1 - g0)
+        orig = torch.arange(g0, g1, dtype=torch.int32, device=self.device)
+        if s.window is None:
+            return ref_loc, query_loc, orig
+        keep = torch.nonzero((ref_loc >= s.window[0])
+                             & (ref_loc <= s.window[1])).squeeze(1)
+        return ref_loc[keep], query_loc[keep], orig[keep]
 
     def _extend_seeded(self, s: SeededChunk) -> PendingChunk:
-        """The native route's device half of a chunk-strand: the extension
+        """The native route's second half of a chunk-strand: the extension
         programs over its hits and the compaction of their candidates, on
         the calling thread's device."""
-        if len(s.ref_loc) == 0:
+        fins = self._dispatch_rows(s)
+        if not fins:
             return PendingChunk(s.chunk_start, s.chunk_end, s.rev,
                                 s.num_seeds, s.num_hits, None, s.seg_ends)
-        q_pad = self.q_rc if s.rev else self.q_fw
-        fins = self._dispatch_rows(s.ref_loc, s.query_loc, q_pad, s.tm)
         t0 = time.time()
         out = _pack_compact(fins, torch.from_numpy(s.seg_ends).to(
             self.device))
@@ -568,37 +567,27 @@ class DeviceAligner:
                 os.environ.get("SEGALIGN_SYNC", "") == "1":
             torch.cuda.synchronize(self.device)
 
-    def _dispatch_rows(self, ref_loc: np.ndarray, query_loc: np.ndarray,
-                       q_pad: torch.Tensor, tm: _StageTimer) -> list:
-        """One extension program per span of at most HBUF hits; each
-        program's candidate rows (_program_candidates), in hit order."""
-        W = self.window
+    def _dispatch_rows(self, s: SeededChunk) -> list:
+        """One extension program per span of at most HBUF hits of a seeded
+        chunk-strand (_program_hits); each program's candidate rows
+        (_program_candidates), in hit order. A program left with no hit
+        in the RM window is skipped."""
+        q_pad = self.q_rc if s.rev else self.q_fw
         fins = []
-        for g0 in range(0, len(ref_loc), self.HBUF):
+        for g0 in range(0, s.num_hits, self.HBUF):
             t0 = time.time()
-            r = ref_loc[g0:g0 + self.HBUF]
-            q = query_loc[g0:g0 + self.HBUF]
-            # the first window's gather starts, as extend_fields_program
-            # computes them: the tile gather serves a program whose blocks
-            # of 128 windows each fit its staged span
-            qtile = tile_spans_ok(np.clip(PAD + q.astype(np.int64) - W, 0,
-                                          q_pad.numel() - 2 * W), 2 * W,
-                                  Q_TILE)
-            rtile = tile_spans_ok(np.clip(PAD + r.astype(np.int64) - W, 0,
-                                          self.ref_pad.numel() - 2 * W),
-                                  2 * W, R_TILE)
-            d_r = torch.from_numpy(r).to(self.device)
-            d_q = torch.from_numpy(q).to(self.device)
-            tm.add("h2d", time.time() - t0)
-            t0 = time.time()
-            fin = extend_fields_program(
-                self.ref_pad, q_pad, d_r, d_q, len(r), self.sub, self.xdrop,
-                self.hspthresh, self.ref_len, self.q_len, pad=PAD, W=W,
-                W_CONT=CONT_W, with_counts=False, qtile=qtile, rtile=rtile)
-            fins.append(_program_candidates(fin, g0))
-            del fin   # the per-hit fields go before the next program's
+            ref_loc, query_loc, orig = self._program_hits(s, g0)
+            m = orig.shape[0]
+            if m:
+                fin = extend_fields_program(
+                    self.ref_pad, q_pad, ref_loc, query_loc, m, self.sub,
+                    self.xdrop, self.hspthresh, self.ref_len, self.q_len,
+                    pad=PAD, W=self.window, W_CONT=CONT_W,
+                    with_counts=False)
+                fins.append(_program_candidates(fin, orig))
+                del fin   # the per-hit fields go before the next program's
             self._sync()
-            tm.add("extend", time.time() - t0)
+            s.tm.add("extend", time.time() - t0)
         return fins
 
     def finish_chunk(self, p: PendingChunk) -> ChunkResult:
@@ -662,27 +651,15 @@ class DeviceAligner:
                                 rev: bool,
                                 window: Optional[Tuple[int, int]]
                                 ) -> ChunkResult:
-        """Device seeding, batch planning, hit expansion and windowed
-        extension of one chunk-strand; host finalize and dedup per logical
-        batch."""
+        """Device seeding and batch planning (_seed_chunk), hit expansion
+        and windowed extension of one chunk-strand; host finalize and dedup
+        per logical batch."""
         empty = np.zeros((0, 4), np.int64)
-        tm = _StageTimer()
-        t0 = time.time()
+        s = self._seed_chunk(chunk_start, chunk_end, rev, window)
+        if s.num_hits == 0:
+            return ChunkResult(empty, 0, s.num_seeds)
         q = self.q_rc if rev else self.q_fw
-        _, qpos, _, starts, cum, stats = chunk_seeds(
-            q, self.index_table, chunk_start, chunk_end - chunk_start,
-            CHUNK=self.chunk_size, seed_size=self.seed_size,
-            shape_pos=self.shape_pos, transition=self.transition, pad=PAD)
-        num_seeds, num_hits = stats.tolist()
-        if num_seeds == 0:
-            return ChunkResult(empty, 0, 0)
-        check_chunk_hits(num_hits, chunk_start, int32_cum=True)
-        tm.add("seeds", time.time() - t0)
-        if num_hits == 0:
-            return ChunkResult(empty, 0, num_seeds)
-        t0 = time.time()
-        ends = _batch_ends(cum, num_hits, self.max_hits)
-        tm.add("plan", time.time() - t0)
+        ends = s.seg_ends.tolist()
         all_out: List[np.ndarray] = []
         h0 = 0
         for h1 in ends:
@@ -694,20 +671,20 @@ class DeviceAligner:
             for g0 in g0s:
                 t0 = time.time()
                 parts.append(_process_hit_range(
-                    self.ref_pad, q, self.pos_table, cum, starts, qpos,
+                    self.ref_pad, q, self.pos_table, s.cum, s.starts, s.qpos,
                     self.sub, g0, min(g0 + self.HBUF, h1), self.ref_len,
                     self.q_len, self.xdrop, self.hspthresh, self.seed_size,
                     window, pad=PAD))
-                tm.add("extend", time.time() - t0)
-                tm.add("nrange", 1e-3)
+                s.tm.add("extend", time.time() - t0)
+                s.tm.add("nrange", 1e-3)
             t0 = time.time()
             rows = np.concatenate(parts)
             out = self._finalize_batch(rows[:, 0], rows[:, 1], rows[:, 2],
                                        rows[:, 3], rev, counts=rows[:, 4:8])
             if out is not None:
                 all_out.append(out)
-            tm.add("host_dedup", time.time() - t0)
+            s.tm.add("host_dedup", time.time() - t0)
         hsps = np.concatenate(all_out) if all_out else empty
-        tm.dump(f"chunk {chunk_start}:{chunk_end} rev={rev} "
-                f"hits={num_hits}")
-        return ChunkResult(hsps, num_hits, num_seeds, len(ends))
+        s.tm.dump(f"chunk {chunk_start}:{chunk_end} rev={rev} "
+                  f"hits={s.num_hits}")
+        return ChunkResult(hsps, s.num_hits, s.num_seeds, len(ends))

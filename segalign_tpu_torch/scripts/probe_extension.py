@@ -12,8 +12,8 @@ Probes:
                 gather_rows), random vs sorted; K3 (gather_rows_tile,
                 T = 64) on the same starts, and what choosing between
                 the two costs the host: the span check of one program's
-                2^17 starts (the clip and tile_spans_ok, as
-                pipeline/device.py calls them), microseconds a call
+                2^17 starts (the clip and tile_spans_ok), microseconds a
+                call
   scan          K5 (ops/window_scan_wide.py) at B = 2^15, W = 512, tile 0,
                 fresh state, beside a torch scan-only version
   searchsorted  searchsorted at S = 5 * 2^20, B = 2^15; take of 5M random

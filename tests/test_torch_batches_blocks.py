@@ -220,7 +220,8 @@ def test_program_candidates_pack_equals_jax_pack(seed):
                            dedup_exact=True)
     want = np.asarray(want)[:int(total)]
     cands = [_program_candidates(
-        {k: torch.from_numpy(v) for k, v in f.items()}, i * B)
+        {k: torch.from_numpy(v) for k, v in f.items()},
+        torch.arange(i * B, (i + 1) * B, dtype=torch.int32))
         for i, f in enumerate(fins)]
     assert all(bool(c["candidate"].all()) for c in cands)
     got = _pack_compact(cands, torch.from_numpy(seg_ends)).numpy()
@@ -243,16 +244,18 @@ def _small_aligner(**kw):
 def test_dispatch_rows_returns_candidate_rows_only():
     """Each program's output holds its candidates only, at their hit
     indices, with the fields extend_fields_program gives them."""
+    from segalign_tpu_torch.native import ChunkSeeder
     from segalign_tpu_torch.ops.extend_fused import extend_fields_program
-    from segalign_tpu_torch.pipeline.device import (CONT_W, PAD,
-                                                    _StageTimer)
+    from segalign_tpu_torch.pipeline.device import CONT_W, PAD
     al, _, _ = _small_aligner(HBUF=64)
     it, pt = al._host_tables
-    ref_loc, query_loc, *_ = al._seeder.seed(
-        al._q_fw_host, 0, 20_000, it, pt, al.shape_pos, al.seed_size,
-        al.max_hits)
+    # the hits on the host, from the host seeder
+    ref_loc, query_loc, *_ = ChunkSeeder(
+        al.chunk_size, al.kmer_size, al.transition).seed(
+            al._q_fw_host, 0, 20_000, it, pt, al.shape_pos, al.seed_size,
+            al.max_hits)
     assert len(ref_loc) > 3 * 64
-    fins = al._dispatch_rows(ref_loc, query_loc, al.q_fw, _StageTimer())
+    fins = al._dispatch_rows(al._seed_chunk(0, 20_000, False))
     assert len(fins) == -(-len(ref_loc) // 64)
     n_cand = 0
     for i, fin in enumerate(fins):
@@ -282,10 +285,8 @@ def _block_tensors(al):
     if isinstance(al, ShardedAligner):
         return [*al.index_shards, *al.pos_shards,
                 *(s["ref"] for s in al._shared.values())]
-    out = [al.ref_pad, al._ref_host, *al._host_tables]
-    if al.device_seeding:
-        out += [al.index_table, al.pos_table]
-    return out
+    return [al.ref_pad, al._ref_host, *al._host_tables, al.index_table,
+            al.pos_table]
 
 
 @pytest.mark.parametrize("kind", ["native", "device", "farm2", "sharded2"])

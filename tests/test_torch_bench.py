@@ -135,8 +135,7 @@ def test_serial_map_chunks_equals_the_finisher_thread(monkeypatch, depth):
         np.testing.assert_array_equal(a.hsps, b.hsps)
 
 
-NATIVE_STAGES = {"seeds", "mask", "h2d", "extend", "pack", "d2h",
-                 "host_dedup"}
+NATIVE_STAGES = {"seeds", "plan", "extend", "pack", "d2h", "host_dedup"}
 DEVICE_STAGES = {"seeds", "plan", "extend", "nrange", "host_dedup"}
 
 

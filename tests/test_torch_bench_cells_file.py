@@ -145,7 +145,7 @@ def test_cell_matches_jax_on_the_cpu(tiny, monkeypatch):
     assert detail["gate"] == "golden and rescored"
     assert detail["failures"] == []
     assert detail["counts"] == tiny[1] and tiny[1]["hsps"] > 0
-    assert set(detail["layers"]["stages_s"]) >= {"seeds", "h2d", "extend",
+    assert set(detail["layers"]["stages_s"]) >= {"seeds", "plan", "extend",
                                                  "pack", "host_dedup"}
     assert detail["profile"] is None
 

@@ -14,7 +14,9 @@ import torch
 
 from segalign_tpu_torch.config import build_substitution_matrix
 from segalign_tpu_torch.ops.extend3 import STATE_KEYS
-from segalign_tpu_torch.ops.first_scan import first_scan, first_scan_plain
+from segalign_tpu_torch.ops.first_scan import (first_scan, first_scan_plain,
+                                               first_scan_seq,
+                                               first_scan_seq_plain)
 from segalign_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
                                            gather_rows_tile)
 from segalign_tpu_torch.ops.window_scan import (window_scan,
@@ -108,6 +110,51 @@ def test_first_scan(dev, W, with_counts):
     for w, g in zip(want, got):
         _same(w, g)
     assert (~want[0]["done"]).sum() > 0
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("W", [512, 256, 80, 2048])
+@pytest.mark.parametrize("pad", [2048, 100])
+def test_first_scan_seq(dev, pad, W, with_counts):
+    """K1 on the padded sequences against its plain version (the gathers,
+    then K1's plain version): anchors at every offset within a 16-byte
+    block, within W of both ends of both sequences, on a repeated core,
+    rows not valid; a pad under W (the clamp moves windows) and sequences
+    whose lengths are no multiple of 16 (the last block partial)."""
+    rng = np.random.default_rng([3, pad, W, with_counts])
+    n_r, n_q, B = 20_003, 17_001, 5000
+    ref, query = _seq(rng, n_r, pad), _seq(rng, n_q, pad)
+    # the reference's [2100, 7000), between its Ns and its wall, again at
+    # 8000 in the query
+    query[pad + 8000:pad + 12900] = ref[pad + 2100:pad + 7000]
+    ref, query = torch.from_numpy(ref), torch.from_numpy(query)
+    loc_r = rng.integers(0, n_r + 1, B).astype(np.int32)
+    loc_q = rng.integers(0, n_q + 1, B).astype(np.int32)
+    loc_r[:64] = 5000 + np.arange(64)
+    loc_q[:64] = 9000 + np.arange(64)[::-1]
+    loc_r[64:1564] = rng.integers(2200, 6900, 1500)
+    loc_q[64:1564] = loc_r[64:1564] + 5900
+    edges = np.array([0, 1, 15, 16, 17, W - 1, W, W + 1])
+    for k, (er, eq) in enumerate(((edges, edges[::-1]),
+                                  (n_r - edges, n_q - edges),
+                                  (edges, n_q - edges),
+                                  (n_r - edges, edges))):
+        loc_r[1600 + 8 * k:1608 + 8 * k] = er
+        loc_q[1600 + 8 * k:1608 + 8 * k] = eq
+    valid = rng.random(B) > 0.1
+    valid[:1700] = True
+    args = [torch.from_numpy(a) for a in (loc_r, loc_q, valid)]
+    sub = torch.from_numpy(SUB)
+    kw = dict(pad=pad, W=W, with_counts=with_counts)
+    want = first_scan_seq_plain(ref, query, *args, sub, 910, n_r, n_q, **kw)
+    before = first_scan_seq.launches
+    got = first_scan_seq(ref.to(dev), query.to(dev),
+                         *(a.to(dev) for a in args), sub.to(dev), 910, n_r,
+                         n_q, **kw)
+    assert first_scan_seq.launches == before + 1
+    for w, g in zip(want, got):
+        _same(w, g)
+    assert (~want[0]["done"]).sum() > 0 and (~want[1]["done"]).sum() > 0
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
@@ -245,9 +292,9 @@ def test_window_256_on_the_card_equals_512(dev):
         al = bench.make_aligner(dev, window=w)
         al.set_ref(ref)
         al.set_query(query, qrc)
-        first_scan.launches = 0
+        first_scan_seq.launches = 0
         out[w] = al.map_chunks(work)
-        assert first_scan.launches > 0
+        assert first_scan_seq.launches > 0
     assert sum(len(r.hsps) for r in out[512]) > 0
     for a, b in zip(out[256], out[512]):
         assert (a.num_hits, a.num_seeds) == (b.num_hits, b.num_seeds)
@@ -268,7 +315,7 @@ def test_bench_run_config_on_the_card_equals_the_cpu(dev, tmp_path,
         with np.load(path) as z:
             out[str(d)] = (res["stats"], {k: z[k] for k in z.files})
         if d == dev:
-            assert res["launches"]["first_scan"] > 0
+            assert res["launches"]["first_scan_seq"] > 0
             assert res["peak_bytes"] > 0
     (want, want_h), (got, got_h) = out["cpu"], out[str(dev)]
     assert got == want and want["hsps"] > 0
@@ -299,7 +346,7 @@ def test_aligner_cuda_matches_cpu(dev):
     for al in als:
         al.set_ref(ref)
         al.set_query(query, qrc)
-    before = fs_mod.first_scan.launches
+    before = fs_mod.first_scan_seq.launches
     n = 0
     for (cs, ce) in chunk_interval(0, len(query) - sc.size, 20_000):
         for rev in (False, True):
@@ -307,7 +354,7 @@ def test_aligner_cuda_matches_cpu(dev):
             assert a.num_hits == b.num_hits
             np.testing.assert_array_equal(a.hsps, b.hsps)
             n += len(a.hsps)
-    assert n > 0 and fs_mod.first_scan.launches > before
+    assert n > 0 and fs_mod.first_scan_seq.launches > before
 
 
 def _variant_inputs(rng, W, n, order):
@@ -589,6 +636,9 @@ def test_every_launcher_counts_1000_launches(dev):
     calls = [
         (gather_rows, lambda: gather_rows(seq, starts, W)),
         (gather_rows_tile, lambda: gather_rows_tile(seq, starts, W, 512)),
+        (first_scan_seq, lambda: first_scan_seq(
+            seq, seq, loc, loc, valid, sub, 910, n, n, pad=0, W=W,
+            with_counts=False)),
         (first_scan, lambda: first_scan(r2, r2, loc, loc, valid, sub, 910, n,
                                         n, W=W, with_counts=False)),
         (window_scan, lambda: window_scan(r, r, loc, loc, st, sub, 910, 0, n,

@@ -47,8 +47,7 @@ def _port(ref, query, rl, ql, m, pad, W, W_CONT, with_counts, hsp=1800):
         torch.from_numpy(pad_sequence(ref, pad)),
         torch.from_numpy(pad_sequence(query, pad)), torch.from_numpy(rl),
         torch.from_numpy(ql), m, torch.from_numpy(SUB), 910, hsp, n, n,
-        pad=pad, W=W, W_CONT=W_CONT, with_counts=with_counts, qtile=True,
-        rtile=True)
+        pad=pad, W=W, W_CONT=W_CONT, with_counts=with_counts)
     return {k: out[k].numpy() for k in FIELDS}
 
 
@@ -70,6 +69,21 @@ def test_extend_fields_program_matches_jax_xla(with_counts):
         for k in FIELDS:
             np.testing.assert_array_equal(got[k], want[k],
                                           err_msg=f"W={W} {k}")
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+def test_survivor_steps_cut_into_parts_change_no_field(rows, monkeypatch):
+    """A survivor step of more alive rows than SURVIVOR_ROWS runs as several
+    parts: every field equals the one-part run's (which the test above
+    holds to the JAX program)."""
+    from segalign_tpu_torch.ops import extend_fused
+    ref, query, rl, ql = _batch(44, 10_000, 3000, 256)
+    want = _port(ref, query, rl, ql, 250, 2048, 256, 1024, True)
+    monkeypatch.setattr(extend_fused, "SURVIVOR_ROWS", rows)
+    got = _port(ref, query, rl, ql, 250, 2048, 256, 1024, True)
+    assert want["candidate"].sum() > 10
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_mixed_continuation_width_is_exact():

@@ -84,10 +84,11 @@ def test_no_import_of_the_jax_package_or_bench():
 def test_cpu_tensors_launch_no_kernel():
     from segalign_tpu.config import build_substitution_matrix
     from segalign_tpu_torch.ops.extend_fused import extend_fields_program
-    from segalign_tpu_torch.ops.first_scan import first_scan
+    from segalign_tpu_torch.ops.first_scan import first_scan, first_scan_seq
     from segalign_tpu_torch.ops.gather import gather_rows, gather_rows_tile
     from segalign_tpu_torch.ops.window_scan import window_scan
-    wrappers = (gather_rows, gather_rows_tile, first_scan, window_scan)
+    wrappers = (gather_rows, gather_rows_tile, first_scan, first_scan_seq,
+                window_scan)
     before = [w.launches for w in wrappers]
     rng = np.random.default_rng(0)
     n, pad = 3000, 2048
@@ -100,6 +101,6 @@ def test_cpu_tensors_launch_no_kernel():
     sub = torch.from_numpy(
         build_substitution_matrix(910).reshape(-1).astype(np.int32))
     out = extend_fields_program(t, t, loc_r, loc_q, 3, sub, 910, 1000, n, n,
-                                pad=pad, qtile=True, rtile=True)
+                                pad=pad)
     assert out["candidate"].tolist() == [True, True, False]
     assert [w.launches for w in wrappers] == before

@@ -51,6 +51,7 @@ def test_scale2_plain_matches_interpreted_kernel(shape):
     ("exp_gather_variants", ["2"]),
     ("probe_env", ["dispatch", "pallas"]),
     ("probe_extension", ["gather", "overhead"]),
+    ("path_walls", ["tree"]),
 ])
 def test_script_fails_without_cuda(script, argv):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)

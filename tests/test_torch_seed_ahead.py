@@ -1,12 +1,13 @@
-"""The native route's seeding stage: map_chunks seeds the next chunk on a
-thread of its own while the calling thread extends the current one.
+"""The native route's map_chunks: the calling thread seeds each chunk on
+the device and extends it, and a finisher thread finishes the chunks
+before.
 
 On the CPU at a tiny size (a few kb, 256-512 bp chunks, 10-12
 chunk-strands): the overlapped map_chunks against its serial form
 (SEGALIGN_OVERLAP=0) and against seed_and_filter chunk by chunk, which
-tests/test_torch_pipeline.py holds to the JAX package; that the seeding
-runs beside the extension, one chunk ahead and no further; and that a
-seeding error raises at its chunk with no seeding left running."""
+tests/test_torch_pipeline.py holds to the JAX package; which thread runs
+each stage; and that an error of the seeding or of the extension raises
+at its chunk with no finisher work left running."""
 
 import threading
 import time
@@ -99,78 +100,61 @@ def test_overlapped_equals_serial_and_per_chunk(mode, monkeypatch):
 
 
 class Recorder:
-    """Wraps an aligner's seeder and _extend_seeded: which thread runs
-    each call, and when each starts and ends, in call order (the seeder is
-    called once a chunk-strand, in work order, and so is
-    _extend_seeded)."""
+    """Wraps an aligner's _seed_chunk, _extend_seeded and finish_chunk:
+    which thread runs each call, in call order (each is called once a
+    chunk-strand, in work order), and how many finish_chunk calls run
+    now."""
 
     def __init__(self, al):
         self.lock = threading.Lock()
-        self.seed_threads, self.extend_threads = [], []
-        self.seeds_done = self.extends_started = 0
-        self.active = 0            # seeding calls running now
-        self.waiting = []          # seeded chunks not yet extended, at
-        #                            each seeding call's start
-        self._started = {}         # call index: Event, set at its start
-        self.seed_hook = self.extend_hook = None
-        seed, extend = al._seeder.seed, al._extend_seeded
+        self.threads = {"seed": [], "extend": [], "finish": []}
+        self.seeds_done = 0
+        self.finishing = 0          # finish_chunk calls running now
+        self.hooks = {}             # stage: fn(call index), at its start
+        seed, extend, finish = (al._seed_chunk, al._extend_seeded,
+                                al.finish_chunk)
 
-        def seed_rec(*a, **kw):
-            with self.lock:
-                k = len(self.seed_threads)
-                self.seed_threads.append(threading.get_ident())
-                self.waiting.append(self.seeds_done - self.extends_started)
-                self.active += 1
-            self.seed_started(k).set()
-            try:
-                if self.seed_hook is not None:
-                    self.seed_hook(k)
-                return seed(*a, **kw)
-            finally:
+        def wrap(stage, fn):
+            def rec(*a, **kw):
                 with self.lock:
-                    self.active -= 1
-                    self.seeds_done += 1
+                    k = len(self.threads[stage])
+                    self.threads[stage].append(threading.get_ident())
+                    if stage == "finish":
+                        self.finishing += 1
+                try:
+                    if stage in self.hooks:
+                        self.hooks[stage](k)
+                    out = fn(*a, **kw)
+                    if stage == "seed":
+                        with self.lock:
+                            self.seeds_done += 1
+                    return out
+                finally:
+                    if stage == "finish":
+                        with self.lock:
+                            self.finishing -= 1
+            return rec
 
-        def extend_rec(s):
-            with self.lock:
-                k = len(self.extend_threads)
-                self.extend_threads.append(threading.get_ident())
-                self.extends_started += 1
-            if self.extend_hook is not None:
-                self.extend_hook(k)
-            return extend(s)
-
-        al._seeder.seed = seed_rec
-        al._extend_seeded = extend_rec
-
-    def seed_started(self, k) -> threading.Event:
-        with self.lock:
-            return self._started.setdefault(k, threading.Event())
+        al._seed_chunk = wrap("seed", seed)
+        al._extend_seeded = wrap("extend", extend)
+        al.finish_chunk = wrap("finish", finish)
 
 
-def test_seeding_runs_beside_the_extension_one_chunk_ahead(monkeypatch):
-    """Chunk k + 1's seeding starts, on a thread of its own, before chunk
-    k's extension ends (each extension waits for it: a serial map_chunks
-    would time out here); when a seeding starts, at most one seeded chunk
-    waits for the dispatch thread."""
+def test_overlapped_form_seeds_on_the_dispatch_thread(monkeypatch):
+    """The default form seeds and extends every chunk on the calling
+    thread, in turn, and finishes them on one other thread."""
     monkeypatch.delenv("SEGALIGN_OVERLAP", raising=False)
     al, work = aligner("plain")
-    want = al.map_chunks(work)
+    want = [al.seed_and_filter(w.chunk_start, w.chunk_end, w.rev)
+            for w in work]
     rec = Recorder(al)
-    overlapped = []
-
-    def extend_hook(k):
-        if k + 1 < len(work) and all(overlapped):
-            overlapped.append(rec.seed_started(k + 1).wait(10))
-
-    rec.extend_hook = extend_hook
     assert_same(al.map_chunks(work), want)
     me = threading.get_ident()
-    assert len(rec.seed_threads) == len(rec.extend_threads) == len(work)
-    assert set(rec.extend_threads) == {me}
-    assert len(set(rec.seed_threads)) == 1 and me not in rec.seed_threads
-    assert overlapped == [True] * (len(work) - 1)
-    assert max(rec.waiting) <= 1 and rec.active == 0
+    n = len(work)
+    assert rec.threads["seed"] == rec.threads["extend"] == [me] * n
+    finishers = set(rec.threads["finish"])
+    assert len(rec.threads["finish"]) == n and len(finishers) == 1
+    assert me not in finishers and rec.finishing == 0
 
 
 def test_serial_form_seeds_on_the_calling_thread(monkeypatch):
@@ -179,16 +163,15 @@ def test_serial_form_seeds_on_the_calling_thread(monkeypatch):
     rec = Recorder(al)
     al.map_chunks(work)
     me = threading.get_ident()
-    assert set(rec.seed_threads) == set(rec.extend_threads) == {me}
+    assert all(set(t) == {me} for t in rec.threads.values())
     assert rec.seeds_done == len(work)
 
 
-def test_seeder_error_raises_at_its_chunk_and_stops_the_seeding(
-        monkeypatch):
+def test_seeding_error_raises_at_its_chunk(monkeypatch):
     """The hit ceiling (SEGALIGN_MAX_CHUNK_HITS) at a chunk-strand after
-    the first: map_chunks raises it after extending the chunks before it,
-    seeds nothing after it, and leaves no seeding running; the aligner
-    then maps the same work as before."""
+    the first: map_chunks raises it at that chunk's turn, after extending
+    the chunks before it and seeding none after it, with no finisher work
+    left running; the aligner then maps the same work as before."""
     monkeypatch.delenv("SEGALIGN_OVERLAP", raising=False)
     al, work = aligner("plain")
     want = al.map_chunks(work)
@@ -196,25 +179,28 @@ def test_seeder_error_raises_at_its_chunk_and_stops_the_seeding(
     k = next(i for i, h in enumerate(hits) if h > hits[0])
     assert k > 0
     rec = Recorder(al)
+    done = []
     monkeypatch.setenv("SEGALIGN_MAX_CHUNK_HITS", str(hits[0]))
     with pytest.raises(RuntimeError, match=rf"seed hits \(> {hits[0]}\)"):
-        al.map_chunks(work)
-    assert rec.seeds_done == k + 1 and rec.extends_started == k
-    assert rec.active == 0
+        al.map_chunks(work, on_result=lambda i, r: done.append(i))
+    assert len(rec.threads["seed"]) == k + 1 and rec.seeds_done == k
+    assert len(rec.threads["extend"]) == k
+    assert rec.finishing == 0 and done == list(range(len(done)))
     monkeypatch.delenv("SEGALIGN_MAX_CHUNK_HITS")
     assert_same(al.map_chunks(work), want)
 
 
-def test_extension_error_waits_for_the_seeding_in_flight(monkeypatch):
-    """An extension that raises while the next chunk is seeded: map_chunks
-    raises its error only once that seeding has ended."""
+def test_extension_error_leaves_no_finisher_work_running(monkeypatch):
+    """An extension that raises while the finisher still works on the
+    chunk before: map_chunks raises its error only once that work has
+    ended, and finishes nothing after it."""
     monkeypatch.delenv("SEGALIGN_OVERLAP", raising=False)
     al, work = aligner("plain")
     rec = Recorder(al)
     failing = threading.Event()
 
-    def seed_hook(k):
-        if k == 3:
+    def finish_hook(k):
+        if k == 1:
             assert failing.wait(10)
             time.sleep(0.02)
 
@@ -223,8 +209,8 @@ def test_extension_error_waits_for_the_seeding_in_flight(monkeypatch):
             failing.set()
             raise ValueError("extension failed")
 
-    rec.seed_hook, rec.extend_hook = seed_hook, extend_hook
+    rec.hooks = dict(finish=finish_hook, extend=extend_hook)
     with pytest.raises(ValueError, match="extension failed"):
-        al.map_chunks(work)
-    assert rec.active == 0 and rec.seeds_done == 4
-    assert rec.extends_started == 3
+        al.map_chunks(work, depth=4)
+    assert rec.finishing == 0 and len(rec.threads["finish"]) == 2
+    assert len(rec.threads["seed"]) == len(rec.threads["extend"]) == 3
