@@ -686,6 +686,8 @@ def main():
     t_n = time.time() - t0
     print(f"build: CUDA kernels {t_k:.1f} s, native host library "
           f"{t_n:.1f} s", flush=True)
+    for ln in _build.kernel_resources("first_scan_seq_kernel"):
+        print(f"build: ptxas {ln}", flush=True)
 
     # ---- the repeat-1x pair and the aligner of phase 2
     t0 = time.time()
@@ -912,6 +914,35 @@ def main():
                       f"against {replaced_ms:.4f} for the K3 + K2 + K1 "
                       f"launches it took the place of [{card}]", flush=True)
                 row.setdefault("replaced_ms", {})[f"W={Wf}"] = replaced_ms
+    # rows that never drop: one random ACGT sequence as both reference and
+    # query, each anchor the same on both, so every window pair is equal
+    # and every lane of every row runs the whole recurrence (the worst
+    # case of the thread-a-row walk)
+    rng_s = np.random.default_rng(2025)
+    same = al.ref_pad.clone()
+    same[pad:pad + n_r] = torch.from_numpy(
+        rng_s.integers(0, 4, n_r).astype(np.uint8)).to(dev)
+    loc_s = torch.from_numpy(rng_s.integers(W, n_r - W, B).astype(
+        np.int32)).to(dev)
+    all_valid = torch.ones(B, dtype=torch.bool, device=dev)
+    for Wf in (W, W256):
+        for wc in (False, True):
+            args = (same, same, loc_s, loc_s, all_valid, sub, 910, n_r, n_r)
+            kw = dict(pad=pad, W=Wf, with_counts=wc)
+            got = first_scan_seq(*args, **kw)
+            err = max(_state_err(g, w) for g, w in
+                      zip(got, first_scan_seq_plain(*args, **kw)))
+            if any(bool(g["done"].any()) for g in got):
+                fail("first_scan_seq: a row of equal windows dropped")
+            ops = sum(scan_work(loc_s, loc_s, all_valid, 0, left, wc, Wf)[1]
+                      for left in (False, True))
+            label = f"never drop W={Wf} counts={'on' if wc else 'off'}"
+            K.check("first_scan_seq", f"B={B} {label}", err,
+                    lambda: first_scan_seq(*args, **kw),
+                    lambda: first_scan_seq_plain(*args, **kw), 5,
+                    covered_bytes(pad + loc_s - Wf, 2 * Wf, pad, pad + n_r)
+                    + B * (9 + 2 * STATE_BYTES), ops, variant=label)
+    del same
     # anchors within W of both ends of both sequences, checked only
     edges = np.array([0, 1, 15, 16, 17, W - 1, W, W + 1])
     e_r = np.concatenate([edges, n_r - edges, edges, n_r - edges])

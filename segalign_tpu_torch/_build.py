@@ -105,17 +105,45 @@ def kernels_path() -> str:
         objs = [os.path.join(objdir, os.path.basename(s) + ".o")
                 for s in srcs]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", os.path.join(_PKG, "csrc"), "-c", s,
-             "-o", o], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for s, o in zip(srcs, objs)]
+            [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-I",
+             os.path.join(_PKG, "csrc"), "-c", s, "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(srcs, objs)]
         # wait for every compiler before raising for any of them
         errs = [p.communicate()[1] for p in procs]
         for s, p, err in zip(srcs, procs, errs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {os.path.basename(s)} "
                                    f"(exit {p.returncode}):\n{err}")
+        with open(out[:-3] + ".log", "w") as f:
+            f.writelines(f"== {os.path.basename(s)}\n{err}"
+                         for s, err in zip(srcs, errs))
         _compile([nvcc, "-shared"], objs, out)
     return out
+
+
+def kernel_resources(name: str, log: str = None) -> list:
+    """ptxas's report on every kernel whose mangled name holds `name`, one
+    line a kernel: registers, shared memory, stack and spills. From `log`
+    (nvcc -Xptxas=-v's output), by default the build log beside the
+    kernel library."""
+    if log is None:
+        with open(kernels_path()[:-3] + ".log") as f:
+            log = f.read()
+    found, props, used = [], {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in line:
+            props[fn] = line.strip()
+        elif "Compiling entry function" in line:
+            used = line.split("'")[1]
+        elif "Used" in line and used:
+            if name in used:
+                found.append(f"{used}: {line.split(':', 1)[1].strip()}; "
+                             f"{props.get(used, '')}")
+            used = None
+    return found
 
 
 def kernels():

@@ -20,33 +20,51 @@
 // Blocks are one direction each, so a warp never diverges on the
 // direction; eight warps a block.
 //
-// Second entry point, sa_first_scan_seq: the same function on the windows
-// of the padded sequences, with no gathered rows between. It computes
-// first_scan(gather_rows(ref_pad, pad + loc_r - W, 2W),
-// gather_rows(query_pad, pad + loc_q - W, 2W), ...): the same clamp of
-// the window's start, the same state. The gathers' two (B, 2W) byte
-// arrays (256 MiB at B = 2^17, W = 512) never exist, and neither do their
-// writes and reads. Bound on the H100: the function must read the
-// sequence bytes the valid rows' windows cover, once each however many
-// windows share them, 9 bytes of anchors and flag a row, and write 90 of
-// state; a chunk's anchors cluster (on the query by construction, on the
-// reference in its repeats), so at the main path's shape that is some 16
-// MB, and the bound is the scans' operations (0.8e9 at W = 512, 0.012 ms;
-// chip_smoke.py counts both from its inputs). What the kernel must hide is
-// latency: each row's window addresses come from its anchors, and its
-// scan from its windows. Design: one warp a row, both directions.
-// scan_window needs 16-byte aligned rows (scan.cuh), and a window starts
-// anywhere, so the warp copies the row's 2W bytes of r and of q into
-// 2W + 16 bytes of shared memory each: the aligned 16-byte blocks that
-// cover the window, as uint4 loads (byte loads for a block past the
-// sequence's end), all of a batch of six a thread issued before any is
-// stored, then a shift of each copy by the window's offset within its
-// first block, in place (each thread reads five words and funnel-shifts
-// them into one block; the warp syncs between the reads and the writes).
-// Then scan_window runs on the copies unchanged, reading shared memory:
-// the left window is the copy's first W bytes, the right one the next W.
-// A row that is not valid reads nothing. 2 x (2W + 16) bytes a warp,
-// 16.6 KB a block at W = 512.
+// Second entry point, sa_first_scan_seq (K1s): the same function on the
+// windows of the padded sequences, with no gathered rows between. It
+// computes first_scan(gather_rows(ref_pad, pad + loc_r - W, 2W),
+// gather_rows(query_pad, pad + loc_q - W, 2W), ...): the same clamp of the
+// window's start, the same state. The gathers' two (B, 2W) byte arrays
+// (256 MiB at B = 2^17, W = 512) never exist.
+//
+// Bound on the H100: operations. The function must read the sequence
+// bytes the valid rows' windows cover, once each however many windows
+// share them, 9 bytes of anchors and flag a row, and write 90 of state; a
+// chunk's anchors cluster (on the query by construction, on the reference
+// in its repeats), so at the main path's shape (B = 2^17, W = 512) that is
+// some 16 MB, 0.005 ms, under the scans' operations: about six a lane,
+// 0.8e9, 0.012 ms at 67e12 a second (chip_smoke.py counts both from its
+// inputs). Most rows drop within a few tens of lanes; past the drop only
+// the sum is needed, about two operations a lane.
+//
+// What held the earlier design back: a warp walked one row, 512 lanes a
+// step with three passes and shuffle scans, so its time was the same at W
+// = 256 as at W = 512 (a warp walks a whole chunk with half its threads
+// masked) and every lane paid the full recurrence past the drop.
+//
+// Design: one thread walks one (row, direction), lane by lane, as the
+// plain version defines the recurrence; a warp holds 32 rows of one
+// direction, a block 128 rows both ways (walk_row says how a row's walk
+// goes). Its 16-byte loads come straight from the sequences, a pair of
+// blocks a step where the whole warp's blocks lie inside them, and its q
+// bytes are aligned to its r blocks in registers (align_block); a table
+// lookup takes a byte permute and an add for its address (lookup), into a
+// table kept in 32 copies, one a bank, so that no two lanes of a warp
+// share a bank (with one copy, soft-masked bases, code 4, put the pairs
+// of r = 4 and r = 0 in the same banks, and a quarter of the benchmark
+// pair's bases are soft-masked). Once no
+// row of the warp is alive, the rest of the window only adds scores; the
+// match counts come out of the same walk (a snapshot at each new best).
+// With xdrop >= 0 the best is the running max itself (walk_block).
+//
+// What holds it now (scripts/k1s_rows.py, PERF.md): its time grows with
+// the lanes walked (W = 256 takes two thirds of W = 512) and not with its
+// instruction count (cutting the sums' loop from 9 to 4.5 instructions a
+// lane moved it by under 10%). Each warp-wide load reads 32 rows' windows
+// at 32 unrelated addresses, and the loads and the lookups share the
+// SM's L1 and shared-memory data path; copying each row's r blocks into
+// shared memory with loads that cover each row's span together measured
+// slower, as did deeper groups of loads.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -115,85 +133,147 @@ __global__ void __launch_bounds__(sa::WARPS_PER_BLOCK * 32)
   }
 }
 
-// The aligned 16-byte block at off (a multiple of 16) of seq, n bytes
-// long: one uint4 load, or byte loads where it passes the end (0 past it).
-__device__ __forceinline__ uint4 load_block(const uint8_t* __restrict__ seq,
-                                            int64_t n, int64_t off) {
-  if (off + 16 <= n) return __ldg(reinterpret_cast<const uint4*>(seq + off));
+// ---- K1s: first_scan_seq_kernel, a thread a (row, direction) ----------
+
+// Build-time knobs; scripts/k1s_rows.py builds and times variants with
+// -D (PERF.md has their times): the blocks an SM must hold at once (the
+// register cap: 80 a thread at 3), and the whole blocks a row loads at
+// once in the sums' loop.
+#ifndef K1S_MIN_BLOCKS
+#define K1S_MIN_BLOCKS 3
+#endif
+#ifndef K1S_GROUP
+#define K1S_GROUP 2
+#endif
+
+constexpr int SEQ_ROWS = 128;  // rows a block: four warps right, four left
+
+// The aligned 16-byte block at off (a multiple of 16, maybe negative) of
+// seq, n >= 16 bytes long, the bytes outside [0, n) read as 0. Out of
+// line: only a block that crosses an end of the sequence takes it.
+__device__ __noinline__ uint4 load_block_edge(const uint8_t* __restrict__ seq,
+                                              int64_t n, int64_t off) {
   uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    if (off + i < n) {
+    if (off + i >= 0 && off + i < n) {
       w[i >> 2] |= static_cast<uint32_t>(seq[off + i]) << (8 * (i & 3));
     }
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Shift a copy left by mis bytes, in place: block j of the result is bytes
-// [16 j + mis, 16 j + mis + 16) of the copy, words 4 j + mis / 4 .. + 4
-// funnel-shifted right by mis % 4 bytes. nblk blocks; the copy holds one
-// more. By one warp, every read of a round before any write (a block's
-// words are read by the thread of the block before it too).
-__device__ __forceinline__ void shift_copy(uint8_t* buf, int mis, int nblk) {
-  if (mis == 0) return;  // the same over the warp
-  const int lane = threadIdx.x & 31;
-  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(buf);
-  const int ws = mis >> 2, sh = 8 * (mis & 3);
-  for (int base = 0; base < nblk; base += 32) {
-    const int j = base + lane;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (j < nblk) {
-      const uint32_t* w = w32 + 4 * j + ws;
-      const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3], w4 = w[4];
-      v = make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
-                     __funnelshift_r(w2, w3, sh),
-                     __funnelshift_r(w3, w4, sh));
-    }
-    __syncwarp();
-    if (j < nblk) reinterpret_cast<uint4*>(buf)[j] = v;
-    __syncwarp();
+__device__ __forceinline__ uint4 load_block(const uint8_t* __restrict__ seq,
+                                            int64_t n, int64_t off) {
+  if (static_cast<uint64_t>(off) <= static_cast<uint64_t>(n - 16)) {
+    return __ldg(reinterpret_cast<const uint4*>(seq + off));
   }
+  return load_block_edge(seq, n, off);
 }
 
-// Bytes [s_r, s_r + L) of r_seq into rbuf and [s_q, s_q + L) of q_seq into
-// qbuf (L + 16 bytes of shared memory each, 16-byte aligned; L a multiple
-// of 16; the sequences 16-byte aligned; each span inside its sequence), by
-// one warp.
-__device__ __forceinline__ void copy_windows(
-    const uint8_t* __restrict__ r_seq, int64_t n_r, int64_t s_r,
-    const uint8_t* __restrict__ q_seq, int64_t n_q, int64_t s_q, int L,
-    uint8_t* rbuf, uint8_t* qbuf) {
-  constexpr int kSlots = 3;  // blocks a thread loads an array a batch
-  const int lane = threadIdx.x & 31;
-  const int nblk = L / 16;
-  const int64_t a_r = s_r & ~static_cast<int64_t>(15);
-  const int64_t a_q = s_q & ~static_cast<int64_t>(15);
-  uint4* r4 = reinterpret_cast<uint4*>(rbuf);
-  uint4* q4 = reinterpret_cast<uint4*>(qbuf);
-  // the nblk + 1 aligned blocks from a_r and from a_q
-  for (int base = 0; base <= nblk; base += 32 * kSlots) {
-    uint4 vr[kSlots], vq[kSlots];
+// Bytes [d, d + 16) of the 32 bytes lo:hi (lo at the lower address), d in
+// [0, 16): two word selects (w8 = d & 8, w4 = d & 4) and four funnel
+// shifts by sh = 8 * (d & 3) bits.
+__device__ __forceinline__ uint4 align_block(const uint4& lo, const uint4& hi,
+                                             bool w8, bool w4, int sh) {
+  const uint32_t u0 = w8 ? lo.z : lo.x, u1 = w8 ? lo.w : lo.y,
+                 u2 = w8 ? hi.x : lo.z, u3 = w8 ? hi.y : lo.w,
+                 u4 = w8 ? hi.z : hi.x, u5 = w8 ? hi.w : hi.y;
+  const uint32_t v0 = w4 ? u1 : u0, v1 = w4 ? u2 : u1, v2 = w4 ? u3 : u2,
+                 v3 = w4 ? u4 : u3, v4 = w4 ? u5 : u4;
+  return make_uint4(__funnelshift_r(v0, v1, sh), __funnelshift_r(v1, v2, sh),
+                    __funnelshift_r(v2, v3, sh), __funnelshift_r(v3, v4, sh));
+}
+
+// Four byte pairs as table entries r * 8 + q, byte j of r with byte j of
+// q. Codes are below 8; a byte of 8 or more, which no padded sequence
+// holds, still gives an entry inside the table.
+__device__ __forceinline__ uint32_t entries_word(uint32_t r, uint32_t q) {
+  return ((r << 3) + q) & 0x3f3f3f3fu;
+}
+
+// The table word of entry byte j of the four words o, by one byte permute
+// and one add. The table keeps 32 copies of each entry, one a bank, so
+// that no two lanes of a warp read one bank: entry i's copies fill bytes
+// [256 i, 256 i + 128) (scores) and [256 i + 128, 256 i + 256) (match
+// counts), and base is the calling lane's copy of entry 0 (the table plus
+// 4 lane, plus 128 for the match counts).
+__device__ __forceinline__ uint32_t lookup(const uint32_t (&o)[4], int j,
+                                           uint32_t base) {
+  const uint32_t addr =
+      __byte_perm(o[j >> 2], 0, 0x4404 | ((j & 3) << 4)) + base;
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The walk of one (row, direction) so far.
+struct Walk {
+  int32_t cum = 0;         // the running sum over every lane walked
+  int32_t m = 0;           // the running max of cum, floored at 0
+  int32_t best = sa::NEG;  // the largest cum before the drop (strict >)
+  int32_t bestk = -1;      // its lane
+  bool alive = true;       // no lane has dropped yet
+  // matches (equal codes below 4) of the blocks walked, and of the lanes
+  // up to bestk: bases 0 and 2 (lo), 1 and 3 (hi), 16-bit fields
+  uint32_t lo = 0, hi = 0, snap_lo = 0, snap_hi = 0;
+};
+
+// One block of 16 lanes, k0 .. k0 + 15, in walk order, from its entries
+// o; tab is the lane's copy of the table (lookup).
+// FULL: the whole recurrence (cum, the running max, the drop test, the
+// best and, with COUNTS, a snapshot of the match counts at each new
+// best); otherwise only the sums. MASKED: lanes outside [0, kend) score 0
+// and are not tested. MERGED (xdrop >= 0): a lane that raises the running
+// max cannot drop (its max minus cum is 0), so while the row is alive the
+// best above 0 is the running max itself, and the walk keeps only that.
+template <bool LEFT, bool COUNTS, bool FULL, bool MASKED, bool MERGED>
+__device__ __forceinline__ void walk_block(Walk& w, const uint32_t (&o)[4],
+                                           uint32_t tab, int k0, int kend,
+                                           int32_t xdrop) {
+  uint32_t n = 0, nsnap = 0;  // this block's matches, 8-bit fields
+  bool snapped = false;
 #pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int k = base + 32 * i + lane;
-      if (k <= nblk) {
-        vr[i] = load_block(r_seq, n_r, a_r + 16 * static_cast<int64_t>(k));
-        vq[i] = load_block(q_seq, n_q, a_q + 16 * static_cast<int64_t>(k));
-      }
+  for (int jj = 0; jj < 16; ++jj) {
+    const int j = LEFT ? 15 - jj : jj;  // the byte of walk position jj
+    int32_t s = static_cast<int32_t>(lookup(o, j, tab));
+    uint32_t one = COUNTS ? lookup(o, j, tab + 128) : 0u;
+    bool in = true;
+    if (MASKED) {
+      in = static_cast<unsigned>(k0 + jj) < static_cast<unsigned>(kend);
+      s = in ? s : 0;
+      one = in ? one : 0u;
     }
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int k = base + 32 * i + lane;
-      if (k <= nblk) {
-        r4[k] = vr[i];
-        q4[k] = vq[i];
+    const int32_t c = sa::wadd(w.cum, s);
+    w.cum = c;
+    if (COUNTS) n += one;
+    if (FULL) {
+      bool up;
+      if (MERGED) {
+        up = w.alive && in && c > w.m;
+        w.m = up ? c : w.m;
+        w.alive = w.alive && !(in && sa::wsub(w.m, c) > xdrop);
+      } else {
+        w.m = c > w.m ? c : w.m;
+        w.alive = w.alive && !(in && sa::wsub(w.m, c) > xdrop);
+        up = w.alive && in && c > w.best;
+        w.best = up ? c : w.best;
+      }
+      w.bestk = up ? k0 + jj : w.bestk;
+      if (COUNTS) {
+        nsnap = up ? n : nsnap;
+        snapped = snapped || up;
       }
     }
   }
-  __syncwarp();
-  shift_copy(rbuf, static_cast<int>(s_r & 15), nblk);
-  shift_copy(qbuf, static_cast<int>(s_q & 15), nblk);
+  if (COUNTS) {
+    if (FULL && snapped) {
+      w.snap_lo = w.lo + (nsnap & 0x00ff00ffu);
+      w.snap_hi = w.hi + ((nsnap >> 8) & 0x00ff00ffu);
+    }
+    w.lo += n & 0x00ff00ffu;
+    w.hi += (n >> 8) & 0x00ff00ffu;
+  }
 }
 
 // The start of the 2W-wide window of anchor loc, as gather_rows computes
@@ -208,24 +288,203 @@ __device__ __forceinline__ int64_t window_start(int32_t pad, int32_t loc,
   return s < 0 ? 0 : (s > hi ? hi : s);
 }
 
-// The fresh state of a row that is not valid: done, maxp -1 (right) or 0
-// (left), the rest 0.
-__device__ __forceinline__ void write_invalid(const sa::State& out, int row,
-                                              int32_t init_maxp) {
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    out.done[row] = true;
-    out.cum[row] = 0;
-    out.maxv[row] = 0;
-    out.maxp[row] = init_maxp;
+// The sequences' bytes of one (row, direction), a 16-byte block of r and
+// its q bytes at a time: r block i, and q blocks i and i + 1 of the q
+// stream, from which align_block cuts r block i's q bytes; the blocks run
+// up (right) or down (left) by step. r and q are the offsets of the next r
+// block and the next q block to load.
+struct Blocks {
+  const uint8_t* __restrict__ ref;
+  const uint8_t* __restrict__ qry;
+  int64_t n_ref, n_qry, r, q, step;
+  bool w8, w4;
+  int sh;
+  bool left;
+  uint4 qprev;  // the q block before q
+  __device__ __forceinline__ void start() {
+    qprev = load_block(qry, n_qry, q);
+    q += step;
   }
-  if (lane < 4) {
-    out.counts[row * 4 + lane] = 0;
-    out.cdel[row * 4 + lane] = 0;
+  // Whether the next `count` blocks lie inside both sequences.
+  __device__ __forceinline__ bool inside(int count) const {
+    const int64_t span = step * (count - 1);
+    const auto in = [](int64_t a, int64_t b, int64_t n) {
+      const int64_t lo = a < b ? a : b, hi = a < b ? b : a;
+      return lo >= 0 && hi <= n - 16;
+    };
+    return in(r, r + span, n_ref) && in(q, q + span, n_qry);
   }
+  // The table entries of the next block. GUARD: a block that crosses an
+  // end of its sequence reads as 0 past it; otherwise every block lies
+  // inside.
+  template <bool GUARD>
+  __device__ __forceinline__ void next(uint32_t (&o)[4]) {
+    const uint4 rb = GUARD ? load_block(ref, n_ref, r)
+                           : __ldg(reinterpret_cast<const uint4*>(ref + r));
+    const uint4 qn = GUARD ? load_block(qry, n_qry, q)
+                           : __ldg(reinterpret_cast<const uint4*>(qry + q));
+    r += step;
+    q += step;
+    entries(rb, qn, o);
+  }
+  // The next G blocks at once, all inside both sequences: their loads are
+  // in flight together.
+  template <int G>
+  __device__ __forceinline__ void load_group(uint4 (&rb)[G], uint4 (&qn)[G]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      rb[g] = __ldg(reinterpret_cast<const uint4*>(ref + r + step * g));
+      qn[g] = __ldg(reinterpret_cast<const uint4*>(qry + q + step * g));
+    }
+    r += step * G;
+    q += step * G;
+  }
+  // The table entries of r block rb and the q block after qprev.
+  __device__ __forceinline__ void entries(const uint4& rb, const uint4& qn,
+                                         uint32_t (&o)[4]) {
+    const uint4 qb = left ? align_block(qn, qprev, w8, w4, sh)
+                          : align_block(qprev, qn, w8, w4, sh);
+    qprev = qn;
+    o[0] = entries_word(rb.x, qb.x);
+    o[1] = entries_word(rb.y, qb.y);
+    o[2] = entries_word(rb.z, qb.z);
+    o[3] = entries_word(rb.w, qb.w);
+  }
+};
+
+// One direction of one row, by one thread; the warp's 32 rows walk
+// together. Lane k is extension offset p = k (right, storage byte s + W +
+// k of the window at s) or k + 1 (left, byte s + W - 1 - k). The walk
+// goes over the aligned 16-byte blocks of r that hold lanes [0, kend),
+// the in-bounds ones: lane 0 sits at walk position mr of block 0 (the
+// positions before it, and those past kend in the last block, are
+// masked). Three phases, each the same over the warp: the full
+// recurrence until no row of the warp has an alive lane left in its
+// window (a vote a block); then only the sums over the blocks that every
+// row with lanes holds whole; then the rest, masked. A row that is not
+// valid, or whose window has no in-bounds lane (kend 0), walks with the
+// warp on blocks it does not use and writes the fresh state: done, maxp
+// -1 (right) or 0 (left), the rest 0.
+template <bool LEFT, bool COUNTS, bool MERGED>
+__device__ __forceinline__ void walk_row(
+    const uint8_t* __restrict__ ref, int64_t n_ref,
+    const uint8_t* __restrict__ qry, int64_t n_qry,
+    const int32_t* __restrict__ loc_r, const int32_t* __restrict__ loc_q,
+    const bool* __restrict__ valid, uint32_t tab, int row, int B, int W,
+    int32_t pad, int32_t xdrop, int32_t ref_len, int32_t query_len,
+    const sa::State& out) {
+  int32_t lr = 0, lq = 0;
+  bool ok = false;
+  if (row < B) {
+    lr = loc_r[row];
+    lq = loc_q[row];
+    ok = valid[row];
+  }
+  const int64_t a = static_cast<int64_t>(ref_len) - lr;
+  const int64_t b = static_cast<int64_t>(query_len) - lq;
+  const int64_t lim = LEFT ? (lr < lq ? lr : lq) : (a < b ? a : b);
+  const int kend =
+      !ok || lim <= 0 ? 0 : (lim >= W ? W : static_cast<int>(lim));
+  // storage bytes of lane 0
+  const int64_t fr = window_start(pad, lr, W, n_ref) + (LEFT ? W - 1 : W);
+  const int64_t fq = window_start(pad, lq, W, n_qry) + (LEFT ? W - 1 : W);
+  const int mr = LEFT ? 15 - static_cast<int>(fr & 15)
+                      : static_cast<int>(fr & 15);
+  // the q bytes of r block i are [t + step i, + 16): q stream blocks i
+  // and i + 1 hold them (left: the stream runs down from the block above)
+  const int64_t t = LEFT ? fq - 15 + mr : fq - mr;
+  const int d = static_cast<int>(t & 15);
+  Blocks blk{ref, qry, n_ref, n_qry, fr & ~static_cast<int64_t>(15),
+             (t & ~static_cast<int64_t>(15)) + (LEFT ? 16 : 0),
+             LEFT ? -16 : 16, (d & 8) != 0, (d & 4) != 0, 8 * (d & 3), LEFT,
+             make_uint4(0, 0, 0, 0)};
+  const int nb = kend ? (mr + kend + 15) >> 4 : 0;
+  // over the warp: the blocks to walk, and [i_lo, i_hi), the blocks that
+  // hold only in-bounds lanes of every row with any
+  const int nbw = __reduce_max_sync(sa::FULL, nb);
+  const int i_lo = __any_sync(sa::FULL, kend > 0 && mr > 0) ? 1 : 0;
+  const int i_hi = static_cast<int>(__reduce_min_sync(
+      sa::FULL, kend ? static_cast<unsigned>((mr + kend) >> 4) : ~0u));
+
+  Walk w;
+  uint32_t o[4] = {0, 0, 0, 0};  // a row with no block reads entry 0
+  if (nb) blk.start();
+  int i = 0;
+  while (i < nbw) {  // the full recurrence
+    if (i < nb) blk.next<true>(o);
+    const int k0 = 16 * i - mr;
+    if (i >= i_lo && i < i_hi) {
+      walk_block<LEFT, COUNTS, true, false, MERGED>(w, o, tab, k0, kend,
+                                                    xdrop);
+    } else {
+      walk_block<LEFT, COUNTS, true, true, MERGED>(w, o, tab, k0, kend,
+                                                   xdrop);
+    }
+    ++i;
+    if (!__any_sync(sa::FULL, w.alive && k0 + 16 < kend)) break;
+  }
+  // sums over whole blocks; unguarded where the blocks of every row lie
+  // inside both sequences (a row without lanes loads blocks it does not
+  // use)
+  if (__all_sync(sa::FULL, i >= i_hi || blk.inside(i_hi - i))) {
+    for (; i + K1S_GROUP <= i_hi; i += K1S_GROUP) {
+      uint4 rb[K1S_GROUP], qn[K1S_GROUP];
+      blk.load_group(rb, qn);
+#pragma unroll
+      for (int g = 0; g < K1S_GROUP; ++g) {
+        blk.entries(rb[g], qn[g], o);
+        walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
+                                                       xdrop);
+      }
+    }
+#pragma unroll 1
+    for (; i < i_hi; ++i) {
+      blk.next<false>(o);
+      walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
+                                                     xdrop);
+    }
+  } else {
+    for (; i < i_hi; ++i) {
+      blk.next<true>(o);
+      walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
+                                                     xdrop);
+    }
+  }
+  for (; i < nbw; ++i) {  // sums, masked
+    if (i < nb) blk.next<true>(o);
+    walk_block<LEFT, COUNTS, false, true, MERGED>(w, o, tab, 16 * i - mr,
+                                                  kend, xdrop);
+  }
+
+  if (row >= B) return;
+  const int32_t p0 = LEFT ? 1 : 0;
+  const int32_t best = MERGED ? (w.bestk >= 0 ? w.m : sa::NEG) : w.best;
+  const bool is_new = kend > 0 && best > 0;  // maxv > its start, 0
+  out.done[row] = kend == 0 || !w.alive || kend < W;
+  out.cum[row] = kend ? w.cum : 0;
+  out.maxv[row] = is_new ? best : 0;
+  out.maxp[row] = is_new ? p0 + w.bestk : p0 - 1;
+  uint32_t in_lo = 0, in_hi = 0, all_lo = 0, all_hi = 0;
+  if (COUNTS && kend) {
+    in_lo = is_new ? w.snap_lo : 0u;
+    in_hi = is_new ? w.snap_hi : 0u;
+    all_lo = w.lo;
+    all_hi = w.hi;
+  }
+  // field by field: the counts up to bestk never exceed the window's
+  const uint32_t del_lo = all_lo - in_lo, del_hi = all_hi - in_hi;
+  reinterpret_cast<int4*>(out.counts)[row] = make_int4(
+      in_lo & 0xffff, in_hi & 0xffff, in_lo >> 16, in_hi >> 16);
+  reinterpret_cast<int4*>(out.cdel)[row] = make_int4(
+      del_lo & 0xffff, del_hi & 0xffff, del_lo >> 16, del_hi >> 16);
 }
 
-__global__ void __launch_bounds__(sa::WARPS_PER_BLOCK * 32)
+
+// Eight warps a block over 128 rows: even warps walk the right windows of
+// 32 rows, odd warps the left windows of the same rows. Each block fills
+// its tables in shared memory first (lookup says how they lie).
+template <bool COUNTS, bool MERGED>
+__global__ void __launch_bounds__(256, K1S_MIN_BLOCKS)
     first_scan_seq_kernel(const uint8_t* __restrict__ ref_pad, int64_t n_ref,
                           const uint8_t* __restrict__ query_pad,
                           int64_t n_query,
@@ -234,42 +493,30 @@ __global__ void __launch_bounds__(sa::WARPS_PER_BLOCK * 32)
                           const bool* __restrict__ valid,
                           const int32_t* __restrict__ sub_g, int B, int W,
                           int32_t pad, int32_t xdrop, int32_t ref_len,
-                          int32_t query_len, bool with_counts,
-                          sa::State right, sa::State left) {
-  __shared__ sa::Tables tab;
-  __shared__ int32_t zero4[4];
-  extern __shared__ __align__(16) uint8_t windows[];
-  if (threadIdx.x < 4) zero4[threadIdx.x] = 0;
-  sa::load_tables(tab, sub_g);
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * sa::WARPS_PER_BLOCK + warp;
-  if (row >= B) return;
-  if (!valid[row]) {
-    write_invalid(right, row, -1);
-    write_invalid(left, row, 0);
-    return;
+                          int32_t query_len, sa::State right,
+                          sa::State left) {
+  __shared__ __align__(1024) uint32_t rtab[64 * 64];
+  for (int i = threadIdx.x; i < 64 * 64; i += blockDim.x) {
+    const int e = i >> 6;
+    rtab[i] = (i & 32) ? ((e % 9 == 0 && e < 32) ? 1u << (8 * (e / 9)) : 0u)
+                       : static_cast<uint32_t>(sub_g[e]);
   }
-  const int32_t lr = loc_r[row], lq = loc_q[row];
-  uint8_t* rbuf = windows + static_cast<size_t>(warp) * 2 * (2 * W + 16);
-  uint8_t* qbuf = rbuf + 2 * W + 16;
-  copy_windows(ref_pad, n_ref, window_start(pad, lr, W, n_ref), query_pad,
-               n_query, window_start(pad, lq, W, n_query), 2 * W, rbuf,
-               qbuf);
-  __syncwarp();
-  // left: the copies' first W bytes, lane W - p holding extension offset p
-  const sa::Offsets ol = sa::first_chunk<true, true>(rbuf, qbuf, W);
-  sa::scan_window<true, true>(rbuf, qbuf, W, tab, xdrop, 1,
-                              (lr < lq ? lr : lq) + static_cast<int64_t>(1),
-                              ol, 0, 0, 0, zero4, zero4, with_counts, left,
-                              row);
-  // right: the next W bytes
-  const sa::Offsets orr =
-      sa::first_chunk<false, true>(rbuf + W, qbuf + W, W);
-  const int64_t a = static_cast<int64_t>(ref_len) - lr;
-  const int64_t b = static_cast<int64_t>(query_len) - lq;
-  sa::scan_window<false, true>(rbuf + W, qbuf + W, W, tab, xdrop, 0,
-                               a < b ? a : b, orr, 0, 0, -1, zero4, zero4,
-                               with_counts, right, row);
+  __syncthreads();
+  const uint32_t base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(rtab)) +
+      4 * (threadIdx.x & 31);
+  const int warp = threadIdx.x >> 5;
+  const int row =
+      blockIdx.x * SEQ_ROWS + (warp >> 1) * 32 + (threadIdx.x & 31);
+  if (warp & 1) {
+    walk_row<true, COUNTS, MERGED>(ref_pad, n_ref, query_pad, n_query, loc_r,
+                                   loc_q, valid, base, row, B, W, pad,
+                                   xdrop, ref_len, query_len, left);
+  } else {
+    walk_row<false, COUNTS, MERGED>(ref_pad, n_ref, query_pad, n_query,
+                                    loc_r, loc_q, valid, base, row, B, W,
+                                    pad, xdrop, ref_len, query_len, right);
+  }
 }
 
 sa::State state_of(void* done, void* cum, void* maxv, void* maxp,
@@ -317,21 +564,17 @@ extern "C" cudaError_t sa_first_scan_seq(
   const sa::State left =
       state_of(l_done, l_cum, l_maxv, l_maxp, l_counts, l_cdel);
   if (B == 0) return cudaSuccess;
-  const size_t smem =
-      static_cast<size_t>(sa::WARPS_PER_BLOCK) * 2 * (2 * W + 16);
-  if (smem > 48 * 1024) {  // above the default, as dynamic shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        first_scan_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int grid = (B + sa::WARPS_PER_BLOCK - 1) / sa::WARPS_PER_BLOCK;
-  first_scan_seq_kernel<<<grid, sa::WARPS_PER_BLOCK * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (B + SEQ_ROWS - 1) / SEQ_ROWS;
+  auto kernel =
+      with_counts ? (xdrop >= 0 ? first_scan_seq_kernel<true, true>
+                                : first_scan_seq_kernel<true, false>)
+                  : (xdrop >= 0 ? first_scan_seq_kernel<false, true>
+                                : first_scan_seq_kernel<false, false>);
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ref_pad), n_ref,
       static_cast<const uint8_t*>(query_pad), n_query,
       static_cast<const int32_t*>(loc_r), static_cast<const int32_t*>(loc_q),
       static_cast<const bool*>(valid), static_cast<const int32_t*>(sub), B, W,
-      pad, xdrop, ref_len, query_len, with_counts != 0, right, left);
+      pad, xdrop, ref_len, query_len, right, left);
   return cudaGetLastError();
 }

@@ -1,9 +1,12 @@
 // One x-drop window of one extension direction for one row, walked by one
-// warp. Shared by first_scan.cu (K1), window_scan.cu (K4) and
-// window_scan_wide.cu (K5): it takes the place of the lane scans inside the
-// TPU kernels those replace (segalign_tpu/ops/extend_pallas.py
-// first_scan_pallas and window_scan_pallas, ops/extend_tiled.py
-// window_scan_tall).
+// warp. Shared by first_scan.cu's K1 on gathered rows (sa_first_scan),
+// window_scan.cu (K4) and window_scan_wide.cu (K5): it takes the place of
+// the lane scans inside the TPU kernels those replace
+// (segalign_tpu/ops/extend_pallas.py first_scan_pallas and
+// window_scan_pallas, ops/extend_tiled.py window_scan_tall). K1 on the
+// padded sequences (sa_first_scan_seq, the paths' K1) does not use it: it
+// walks a thread a row and direction (first_scan.cu says why), and the
+// SMEM flag below, which read its shared-memory copies, has no caller.
 //
 // The recurrence is the scan form of oracle/scan_spec.py, with the carried
 // state of ops/extend3.py's window step, in int32 with wraparound:

@@ -1,11 +1,12 @@
 """Walls of the paths beside the benchmark's cells that run the aligner's
 seeding and first windows, for a tree against another in one call.
 
-    python -m segalign_tpu_torch.scripts.path_walls [label]
+    python -m segalign_tpu_torch.scripts.path_walls [label [PATH,...]]
 
 Run it from the root of each tree (the package is imported from the
-working directory), in turns, with a label naming the tree. At the sizes
-of chip_smoke.py's phases 2c, 3c and 3g:
+working directory), in turns, with a label naming the tree; PATH names
+the paths to run (pair, rm_4M, rm_cli_scale4, b500; all by default). At
+the sizes of chip_smoke.py's phases 2c, 3c and 3g:
 
   pair_one / pair_farm  DeviceAligner.map_chunks over the repeat-1x 4 Mbp
                         pair (bench_inputs), and the same through
@@ -48,6 +49,8 @@ from ..pipeline.repeat_masker import run_repeat_masker
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     label = argv[0] if argv else "tree"
+    paths = argv[1].split(",") if len(argv) > 1 else [
+        "pair", "rm_4M", "rm_cli_scale4", "b500"]
     dev = require_cuda("path_walls")
     card = print_card("path_walls")
     root = os.getcwd()
@@ -71,7 +74,17 @@ def main(argv=None):
     settings = bench_inputs.aligner_settings(dev)
     work = bench_inputs.chunk_work(query)
     depth = bench_inputs.DEPTH
+    if "pair" in paths:
+        pair_walls(dev, ref, query, qrc, settings, work, depth, timed, out)
+    if "rm_4M" in paths:
+        rm_walls(d, dev, ref, timed, out)
+    if "rm_cli_scale4" in paths:
+        rm_cli_walls(d, root, out)
+    if "b500" in paths:
+        b500_walls(settings, depth, timed, out)
 
+
+def pair_walls(dev, ref, query, qrc, settings, work, depth, timed, out):
     al = DeviceAligner(**settings)
     al.set_ref(ref)
     al.set_query(query, qrc)
@@ -92,6 +105,8 @@ def main(argv=None):
     del al, farm
     torch.cuda.empty_cache()
 
+
+def rm_walls(d, dev, ref, timed, out):
     fa = os.path.join(d, "rm_ref.fa")
     bench_inputs.write_codes_fasta(fa, ref)
     cfg = RMConfig(seq_filename=fa)
@@ -110,6 +125,9 @@ def main(argv=None):
         out("rm_4M", dt, run=i, intervals=n_iv, hits=st.num_seed_hits,
             hsps=st.num_hsps, peak_gib=peak)
 
+
+
+def rm_cli_walls(d, root, out):
     r4, q4 = os.path.join(d, "ref4.fa"), os.path.join(d, "qry4.fa")
     bench_inputs.write_scale_inputs("scale-4", r4, q4)
     launcher = os.path.join(root, "segalign_tpu_torch", "scripts",
@@ -125,6 +143,9 @@ def main(argv=None):
             digest = hashlib.sha256(fh.read()).hexdigest()
         out("rm_cli_scale4", dt, run=i, sha256=digest)
 
+
+
+def b500_walls(settings, depth, timed, out):
     ref5, query5 = bench_inputs.load_inputs(
         *bench_inputs.SCALE_INPUTS["block-500"][:2])
     t0 = time.time()

@@ -120,7 +120,10 @@ def test_first_scan_seq(dev, pad, W, with_counts):
     then K1's plain version): anchors at every offset within a 16-byte
     block, within W of both ends of both sequences, on a repeated core,
     rows not valid; a pad under W (the clamp moves windows) and sequences
-    whose lengths are no multiple of 16 (the last block partial)."""
+    whose lengths are no multiple of 16 (the last block partial). Then
+    rows that never drop (both windows inside the copied core), the same
+    rows at xdrop 0, one row alone, and 33 rows (one warp and one row of
+    the next: B no multiple of 32)."""
     rng = np.random.default_rng([3, pad, W, with_counts])
     n_r, n_q, B = 20_003, 17_001, 5000
     ref, query = _seq(rng, n_r, pad), _seq(rng, n_q, pad)
@@ -155,6 +158,26 @@ def test_first_scan_seq(dev, pad, W, with_counts):
     for w, g in zip(want, got):
         _same(w, g)
     assert (~want[0]["done"]).sum() > 0 and (~want[1]["done"]).sum() > 0
+
+    # both windows of these rows lie in the reference's [2100, 7000) and
+    # its copy in the query: equal windows, no drop
+    still = np.linspace(2100 + W, 7000 - W, 160).astype(np.int32)
+    rows = [torch.from_numpy(a) for a in (
+        np.concatenate([still, loc_r[:200]]),
+        np.concatenate([still + 5900, loc_q[:200]]),
+        np.concatenate([np.ones(160, bool), valid[:200]]))]
+    for n, xdrop in ((360, 910), (360, 0), (1, 910), (33, 910), (33, 0)):
+        part = [a[:n] for a in rows]
+        want = first_scan_seq_plain(ref, query, *part, sub, xdrop, n_r, n_q,
+                                    **kw)
+        got = first_scan_seq(ref.to(dev), query.to(dev),
+                             *(a.to(dev) for a in part), sub.to(dev), xdrop,
+                             n_r, n_q, **kw)
+        for w, g in zip(want, got):
+            _same(w, g)
+        if xdrop == 910:   # the equal windows ran to their end
+            for w in want:
+                assert not w["done"][:min(n, 160)].any()
 
 
 @pytest.mark.parametrize("with_counts", [False, True])

@@ -8,11 +8,13 @@ seeding. On the CPU "the device's hits" are the same plain-torch route the
 card runs (chunk_seeds, _batch_ends, expand_hits and the RM window in
 DeviceAligner._seed_chunk and _program_hits). first_scan_seq's CPU
 version is held to _first_steps_pallas in interpret mode (its kernel is
-held to the CPU version in test_torch_cuda.py and chip_smoke.py). A numpy
-model of the kernel's window copy (the aligned 16-byte blocks that cover a
-window, the clip at the sequence's end, the shift into place) is held to
-the gather it replaces. A few kb; about 8 s, most of it the four JAX
-compiles."""
+held to the CPU version in test_torch_cuda.py and chip_smoke.py), and so
+is the numpy model of the kernel's walk (first_scan_rows_model.py, held to
+the CPU version in test_torch_first_scan_rows.py), on the same inputs. A
+few kb; about 8 s, most of it the four JAX compiles."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,7 +25,6 @@ from segalign_tpu_torch.config import build_substitution_matrix
 from segalign_tpu_torch.io.encode import revcomp_codes
 from segalign_tpu_torch.native import ChunkSeeder
 from segalign_tpu_torch.ops.first_scan import first_scan_seq
-from segalign_tpu_torch.ops.gather import gather_rows_plain
 from segalign_tpu_torch.ops.padding import pad_sequence
 from segalign_tpu_torch.pipeline.device import PAD, DeviceAligner
 
@@ -120,17 +121,13 @@ def _padded(rng, n):
     return torch.from_numpy(pad_sequence(codes, PAD))
 
 
-@pytest.mark.parametrize("with_counts", [False, True])
-@pytest.mark.parametrize("W", [512, 256])
-def test_first_scan_seq_equals_jax_first_steps(W, with_counts):
-    """Exactly, every field of both states: first_scan_seq on the padded
-    sequences against the JAX package's _first_steps_pallas (its two
-    gathers and first_scan_pallas, in interpret mode), at the pipeline's
-    pad and with anchors within W of both ends of both sequences."""
+def _first_rows(W, with_counts):
+    """The padded sequences and anchors of the first-window tests, with a
+    repeated core, and the JAX package's _first_steps_pallas on them (its
+    two gathers and first_scan_pallas, in interpret mode): (ref, query,
+    loc_r, loc_q, valid, n_r, n_q, (want_right, want_left))."""
     import jax.numpy as jnp
     from segalign_tpu.ops.extend_fused import _first_steps_pallas
-    from segalign_tpu_torch.ops.extend3 import STATE_KEYS, state_to_numpy
-    from segalign_tpu_torch.ops.first_scan import first_scan
     rng = np.random.default_rng([W, with_counts])
     n_r, n_q = 2500, 2200   # padded to one length: one gather compiled
     ref, query = _padded(rng, n_r), _padded(rng, n_q)
@@ -141,67 +138,50 @@ def test_first_scan_seq_equals_jax_first_steps(W, with_counts):
     loc_q[40:120] = loc_r[40:120] - 400
     valid = torch.from_numpy(rng.random(loc_r.numel()) > 0.1)
     valid[:32] = True
-    before = (first_scan.launches, first_scan_seq.launches)
-    got = first_scan_seq(ref, query, loc_r, loc_q, valid, SUB, 910, n_r,
-                         n_q, pad=PAD, W=W, with_counts=with_counts)
-    assert (first_scan.launches, first_scan_seq.launches) == before
     J = lambda t: jnp.asarray(t.numpy())
     st = {"done": J(~valid)}
     (want_r, _), (want_l, _) = _first_steps_pallas(
         J(ref), J(query), J(loc_r), J(loc_q), st, st, J(SUB), 910, n_r,
         n_q, pad=PAD, W=W, interpret=True, with_counts=with_counts)
-    for g, w in zip(got, (want_r, want_l)):
+    return ref, query, loc_r, loc_q, valid, n_r, n_q, (want_r, want_l)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("W", [512, 256])
+def test_first_scan_seq_equals_jax_first_steps(W, with_counts):
+    """Exactly, every field of both states: first_scan_seq on the padded
+    sequences against the JAX package's _first_steps_pallas (its two
+    gathers and first_scan_pallas, in interpret mode), at the pipeline's
+    pad and with anchors within W of both ends of both sequences."""
+    from segalign_tpu_torch.ops.extend3 import STATE_KEYS, state_to_numpy
+    from segalign_tpu_torch.ops.first_scan import first_scan
+    ref, query, loc_r, loc_q, valid, n_r, n_q, want = _first_rows(
+        W, with_counts)
+    before = (first_scan.launches, first_scan_seq.launches)
+    got = first_scan_seq(ref, query, loc_r, loc_q, valid, SUB, 910, n_r,
+                         n_q, pad=PAD, W=W, with_counts=with_counts)
+    assert (first_scan.launches, first_scan_seq.launches) == before
+    for g, w in zip(got, want):
         g = state_to_numpy(g)
         for k in STATE_KEYS:
             np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=k)
         assert (~g["done"]).sum() > 0 and g["done"].sum() > 0
 
 
-def _copy_window_model(seq: np.ndarray, s: int, L: int) -> np.ndarray:
-    """csrc/first_scan.cu copy_windows for one sequence in numpy: the
-    L // 16 + 1 aligned 16-byte blocks from s & ~15 (bytes past the
-    sequence 0), then the copy shifted left by s & 15 bytes, word by word
-    with funnel shifts (shift_copy)."""
-    n, a0, nblk = len(seq), s & ~15, L // 16
-    buf = np.zeros(L + 16, np.uint8)
-    for k in range(nblk + 1):
-        part = seq[a0 + 16 * k:min(a0 + 16 * k + 16, n)]
-        buf[16 * k:16 * k + len(part)] = part
-    mis = s & 15
-    if mis:
-        words = buf.view("<u4").astype(np.uint64)
-        ws, sh = mis >> 2, 8 * (mis & 3)
-        i = np.arange(L // 4) + ws
-        pair = (words[i + 1] << np.uint64(32)) | words[i]
-        buf[:L] = ((pair >> np.uint64(sh)) & np.uint64(0xFFFFFFFF)).astype(
-            "<u4").view(np.uint8)
-    return buf[:L]
-
-
-def _window_start_model(pad: int, loc: int, W: int, n: int) -> int:
-    """csrc/first_scan.cu window_start: pad + loc - W wrapped to int32,
-    clamped to [0, n - 2W]."""
-    s = (pad + loc - W + 2**31) % 2**32 - 2**31
-    return min(max(s, 0), n - 2 * W)
-
-
-@pytest.mark.parametrize("W", [512, 256, 80])
-def test_window_copy_model_equals_the_gather(W):
-    """Every anchor's 2W-wide window (the kernel scans its first W bytes
-    leftwards and the next W rightwards), at every offset within a 16-byte
-    block, near both ends of a sequence whose length is not a multiple of
-    16 (the last block partial), with starts the clamp moves and a start
-    that wraps in int32."""
-    rng = np.random.default_rng(W)
-    n = 3 * W + 16 * 37 + 9
-    seq = rng.integers(0, 256, n).astype(np.uint8)
-    pad = W // 2
-    locs = np.concatenate([np.arange(0, 40), n - pad - np.arange(0, 40),
-                           rng.integers(-W, n, 200), [2**31 - 1 - pad // 2]])
-    t = torch.from_numpy(seq)
-    want = gather_rows_plain(
-        t, pad + torch.from_numpy(locs.astype(np.int32)) - W, 2 * W).numpy()
-    for loc, row in zip(locs, want):
-        s = _window_start_model(pad, int(loc), W, n)
-        np.testing.assert_array_equal(_copy_window_model(seq, s, 2 * W),
-                                      row, err_msg=str(loc))
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("W", [512, 256])
+def test_first_scan_rows_model_equals_jax_first_steps(W, with_counts):
+    """The numpy model of the kernel's walk (a thread a row and direction,
+    the warp's phases, the counts snapshot) against _first_steps_pallas on
+    the same inputs, every field exactly."""
+    from segalign_tpu_torch.ops.extend3 import STATE_KEYS
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from first_scan_rows_model import k1s_model
+    ref, query, loc_r, loc_q, valid, n_r, n_q, want = _first_rows(
+        W, with_counts)
+    got, _ = k1s_model(ref.numpy(), query.numpy(), loc_r.numpy(),
+                       loc_q.numpy(), valid.numpy(), SUB.numpy(), 910, n_r,
+                       n_q, pad=PAD, W=W, with_counts=with_counts)
+    for g, w in zip(got, want):
+        for k in STATE_KEYS:
+            np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=k)
