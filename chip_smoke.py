@@ -16,7 +16,9 @@ last line, and without CUDA the script fails at once:
      plain version's (plain_ms; CUDA events, after a warmup, measured
      plain, kernel, kernel, plain), its bound (bound_ms: the bytes this
      run's inputs make it read and write over the card's memory rate, or
-     its operations over the card's rate if that is more) and, where one
+     its operations over the card's rate if that is more; a first window's
+     lanes past its row's first drop, found by the plain walk, count only
+     the sum's operations) and, where one
      PyTorch call computes the same function, that call's time
      (library_ms: an advanced index for the gathers, x * 2 for scale2;
      the port never calls it);
@@ -399,9 +401,9 @@ def _state_err(a, b) -> int:
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # operations a scanned lane needs: a table lookup, an add, a max, a
-# subtract and two compares; with the match counts a compare, a select and
-# two adds more
-SCAN_OPS, COUNT_OPS = 6, 4
+# subtract and two compares; past its row's first drop only the lookup and
+# the add; with the match counts a compare, a select and two adds more
+SCAN_OPS, SUM_OPS, COUNT_OPS = 6, 2, 4
 STATE_BYTES = 45   # done 1, cum, maxv, maxp 4 each, counts and cdel 16 each
 
 
@@ -736,17 +738,50 @@ def main():
         on the sequence's sliding windows (starts in range, no clamp)."""
         return seq.unfold(0, width, 1)[starts.long()]
 
-    def scan_work(lr, lq, alive, tile, left, wc, width):
-        """(bytes, operations) a window scan needs on these rows: the
-        in-bounds lanes of the alive rows' r and q, every row's anchors
-        and state in and out, the table."""
+    def in_bounds(lr, lq, tile, left, width):
+        """The in-bounds lanes of each row's window at `tile`."""
         if left:
             n_inb = torch.minimum(lr, lq).long() - tile
         else:
             n_inb = torch.minimum(n_r - lr.long(), n_q - lq.long()) - tile
-        lanes = int(n_inb.clamp(0, width)[alive].sum())
+        return n_inb.clamp(0, width)
+
+    def scan_work(lr, lq, alive, tile, left, wc, width, full=None):
+        """(bytes, operations) a window scan needs on these rows: the
+        in-bounds lanes of the alive rows' r and q, every row's anchors
+        and state in and out, the table. full: the lanes of each row that
+        need the whole recurrence (first_lanes), the rest only the sum;
+        every in-bounds lane where None."""
+        n_inb = in_bounds(lr, lq, tile, left, width)
+        lanes = int(n_inb[alive].sum())
         nbytes = 2 * lanes + lr.numel() * (8 + 2 * STATE_BYTES) + 256
-        return nbytes, lanes * (SCAN_OPS + (COUNT_OPS if wc else 0))
+        n_full = lanes if full is None else int(full[alive].sum())
+        extra = COUNT_OPS if wc else 0
+        return nbytes, (n_full * (SCAN_OPS + extra)
+                        + (lanes - n_full) * (SUM_OPS + extra))
+
+    def first_lanes(seq_r, seq_q, lr, lq, width, left, xdrop=910):
+        """The lanes of each row's first window (at pad + loc - width, as
+        the first scans read it) that need the whole recurrence: the
+        in-bounds ones up to and with the row's first drop, from the plain
+        walk on these inputs."""
+        n_inb = in_bounds(lr, lq, 0, left, width)
+        lanes = torch.arange(width, device=dev)
+        full = torch.empty_like(n_inb)
+        for a in range(0, lr.numel(), 1 << 14):
+            rows = slice(a, a + (1 << 14))
+            r = gather_rows_plain(seq_r, pad + lr[rows] - width, 2 * width)
+            q = gather_rows_plain(seq_q, pad + lq[rows] - width, 2 * width)
+            r, q = ((r[:, :width].flip(1), q[:, :width].flip(1)) if left
+                    else (r[:, width:], q[:, width:]))
+            inb = lanes < n_inb[rows, None]
+            cum = torch.cumsum(torch.where(inb, sub[r.long() * 8 + q.long()],
+                                           0), 1, dtype=torch.int32)
+            m = torch.cummax(cum, 1).values.clamp(min=0)
+            drop = inb & (m - cum > xdrop)
+            first = torch.where(drop, lanes, width).amin(1)
+            full[rows] = torch.minimum(first + 1, n_inb[rows])
+        return full
 
     for Wg in (2 * W, Wc):
         s = torch.from_numpy(rng.integers(
@@ -823,6 +858,10 @@ def main():
     r2 = gather_rows(ref_w, r_start, 2 * W)
     q2 = gather_rows(q_w, q_start, 2 * W)
     valid = torch.arange(B, device=dev) < B - 100
+    # the first windows' lanes up to each row's drop, for K1's and K1s's
+    # operations
+    full_lanes = {Wf: {left: first_lanes(ref_w, q_w, loc_r, loc_q, Wf, left)
+                       for left in (False, True)} for Wf in (W, W256)}
     first = {}
     for wc in (False, True):
         args = (r2, q2, loc_r, loc_q, valid, sub, 910, n_r, n_q)
@@ -832,8 +871,8 @@ def main():
         alive = [int((~g["done"]).sum()) for g in got]
         # both halves at tile 0: the state is implicit on entry (9 bytes
         # a row come in: two anchors and the valid flag)
-        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W)
-                for left in (False, True)]
+        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W,
+                          full_lanes[W][left]) for left in (False, True)]
         nbytes = sum(w[0] for w in work) - B * (7 + 2 * STATE_BYTES) - 256
         K.check("first_scan", f"B={B} W={W} counts={'on' if wc else 'off'} "
                 f"(alive after: right {alive[0]}, left {alive[1]})", err,
@@ -851,8 +890,8 @@ def main():
         want = first_scan_plain(*args, W=W256, with_counts=wc)
         err = max(_state_err(g, w) for g, w in zip(got, want))
         alive = [int((~g["done"]).sum()) for g in got]
-        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W256)
-                for left in (False, True)]
+        work = [scan_work(loc_r, loc_q, valid, 0, left, wc, W256,
+                          full_lanes[W256][left]) for left in (False, True)]
         nbytes = sum(w[0] for w in work) - B * (7 + 2 * STATE_BYTES) - 256
         K.check("first_scan", f"B={B} W={W256} "
                 f"counts={'on' if wc else 'off'} (alive after: right "
@@ -897,7 +936,8 @@ def main():
             alive = [int((~g["done"]).sum()) for g in got]
             # the covered sequence bytes, 9 bytes of anchors and flag a
             # row, both states out; the operations of both halves' lanes
-            ops = sum(scan_work(loc_r, loc_q, valid, 0, left, wc, Wf)[1]
+            ops = sum(scan_work(loc_r, loc_q, valid, 0, left, wc, Wf,
+                                full_lanes[Wf][left])[1]
                       for left in (False, True))
             label = f"W={Wf} counts={'on' if wc else 'off'}"
             K.check("first_scan_seq",
@@ -934,7 +974,9 @@ def main():
                       zip(got, first_scan_seq_plain(*args, **kw)))
             if any(bool(g["done"].any()) for g in got):
                 fail("first_scan_seq: a row of equal windows dropped")
-            ops = sum(scan_work(loc_s, loc_s, all_valid, 0, left, wc, Wf)[1]
+            ops = sum(scan_work(loc_s, loc_s, all_valid, 0, left, wc, Wf,
+                                first_lanes(same, same, loc_s, loc_s, Wf,
+                                            left))[1]
                       for left in (False, True))
             label = f"never drop W={Wf} counts={'on' if wc else 'off'}"
             K.check("first_scan_seq", f"B={B} {label}", err,

@@ -122,14 +122,12 @@ def kernels_path() -> str:
     return out
 
 
-def kernel_resources(name: str, log: str = None) -> list:
+def kernel_resources(name: str) -> list:
     """ptxas's report on every kernel whose mangled name holds `name`, one
-    line a kernel: registers, shared memory, stack and spills. From `log`
-    (nvcc -Xptxas=-v's output), by default the build log beside the
-    kernel library."""
-    if log is None:
-        with open(kernels_path()[:-3] + ".log") as f:
-            log = f.read()
+    line a kernel: registers, shared memory, stack and spills, from the
+    build log beside the kernel library (nvcc -Xptxas=-v's output)."""
+    with open(kernels_path()[:-3] + ".log") as f:
+        log = f.read()
     found, props, used = [], {}, None
     for line in log.splitlines():
         if "Function properties for" in line:

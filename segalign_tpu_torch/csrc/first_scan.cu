@@ -27,15 +27,16 @@
 // window's start, the same state. The gathers' two (B, 2W) byte arrays
 // (256 MiB at B = 2^17, W = 512) never exist.
 //
-// Bound on the H100: operations. The function must read the sequence
-// bytes the valid rows' windows cover, once each however many windows
-// share them, 9 bytes of anchors and flag a row, and write 90 of state; a
-// chunk's anchors cluster (on the query by construction, on the reference
-// in its repeats), so at the main path's shape (B = 2^17, W = 512) that is
-// some 16 MB, 0.005 ms, under the scans' operations: about six a lane,
-// 0.8e9, 0.012 ms at 67e12 a second (chip_smoke.py counts both from its
-// inputs). Most rows drop within a few tens of lanes; past the drop only
-// the sum is needed, about two operations a lane.
+// Bound on the H100: the larger of its bytes and its operations. It must
+// read the sequence bytes the valid rows' windows cover, once each however
+// many windows share them, 9 bytes of anchors and flag a row, and write 90
+// of state; a chunk's anchors cluster (on the query by construction, on
+// the reference in its repeats), so at the main path's shape (B = 2^17, W
+// = 512) that is some 16 MB, 0.005 ms. Its operations: six a lane up to a
+// row's first drop (a lookup, an add, a max, a subtract, two compares)
+// and two past it (the lookup and the add), at 67e12 a second; most rows
+// drop within a few tens of lanes. chip_smoke.py counts both from its
+// inputs, the drops from the plain walk.
 //
 // What held the earlier design back: a warp walked one row, 512 lanes a
 // step with three passes and shuffle scans, so its time was the same at W
@@ -45,9 +46,9 @@
 // Design: one thread walks one (row, direction), lane by lane, as the
 // plain version defines the recurrence; a warp holds 32 rows of one
 // direction, a block 128 rows both ways (walk_row says how a row's walk
-// goes). Its 16-byte loads come straight from the sequences, a pair of
-// blocks a step where the whole warp's blocks lie inside them, and its q
-// bytes are aligned to its r blocks in registers (align_block); a table
+// goes). Its 16-byte loads come straight from the sequences, unguarded
+// where the whole warp's blocks lie inside them, and its q bytes are
+// aligned to its r blocks in registers (align_block); a table
 // lookup takes a byte permute and an add for its address (lookup), into a
 // table kept in 32 copies, one a bank, so that no two lanes of a warp
 // share a bank (with one copy, soft-masked bases, code 4, put the pairs
@@ -55,7 +56,6 @@
 // pair's bases are soft-masked). Once no
 // row of the warp is alive, the rest of the window only adds scores; the
 // match counts come out of the same walk (a snapshot at each new best).
-// With xdrop >= 0 the best is the running max itself (walk_block).
 //
 // What holds it now (scripts/k1s_rows.py, PERF.md): its time grows with
 // the lanes walked (W = 256 takes two thirds of W = 512) and not with its
@@ -64,7 +64,7 @@
 // at 32 unrelated addresses, and the loads and the lookups share the
 // SM's L1 and shared-memory data path; copying each row's r blocks into
 // shared memory with loads that cover each row's span together measured
-// slower, as did deeper groups of loads.
+// slower, and loading two blocks a step instead of one no faster.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -135,18 +135,9 @@ __global__ void __launch_bounds__(sa::WARPS_PER_BLOCK * 32)
 
 // ---- K1s: first_scan_seq_kernel, a thread a (row, direction) ----------
 
-// Build-time knobs; scripts/k1s_rows.py builds and times variants with
-// -D (PERF.md has their times): the blocks an SM must hold at once (the
-// register cap: 80 a thread at 3), and the whole blocks a row loads at
-// once in the sums' loop.
-#ifndef K1S_MIN_BLOCKS
-#define K1S_MIN_BLOCKS 3
-#endif
-#ifndef K1S_GROUP
-#define K1S_GROUP 2
-#endif
-
 constexpr int SEQ_ROWS = 128;  // rows a block: four warps right, four left
+// blocks an SM must hold at once: caps the registers at 80 a thread
+constexpr int SEQ_MIN_BLOCKS = 3;
 
 // The aligned 16-byte block at off (a multiple of 16, maybe negative) of
 // seq, n >= 16 bytes long, the bytes outside [0, n) read as 0. Out of
@@ -224,10 +215,8 @@ struct Walk {
 // FULL: the whole recurrence (cum, the running max, the drop test, the
 // best and, with COUNTS, a snapshot of the match counts at each new
 // best); otherwise only the sums. MASKED: lanes outside [0, kend) score 0
-// and are not tested. MERGED (xdrop >= 0): a lane that raises the running
-// max cannot drop (its max minus cum is 0), so while the row is alive the
-// best above 0 is the running max itself, and the walk keeps only that.
-template <bool LEFT, bool COUNTS, bool FULL, bool MASKED, bool MERGED>
+// and are not tested.
+template <bool LEFT, bool COUNTS, bool FULL, bool MASKED>
 __device__ __forceinline__ void walk_block(Walk& w, const uint32_t (&o)[4],
                                            uint32_t tab, int k0, int kend,
                                            int32_t xdrop) {
@@ -248,17 +237,10 @@ __device__ __forceinline__ void walk_block(Walk& w, const uint32_t (&o)[4],
     w.cum = c;
     if (COUNTS) n += one;
     if (FULL) {
-      bool up;
-      if (MERGED) {
-        up = w.alive && in && c > w.m;
-        w.m = up ? c : w.m;
-        w.alive = w.alive && !(in && sa::wsub(w.m, c) > xdrop);
-      } else {
-        w.m = c > w.m ? c : w.m;
-        w.alive = w.alive && !(in && sa::wsub(w.m, c) > xdrop);
-        up = w.alive && in && c > w.best;
-        w.best = up ? c : w.best;
-      }
+      w.m = c > w.m ? c : w.m;
+      w.alive = w.alive && !(in && sa::wsub(w.m, c) > xdrop);
+      const bool up = w.alive && in && c > w.best;
+      w.best = up ? c : w.best;
       w.bestk = up ? k0 + jj : w.bestk;
       if (COUNTS) {
         nsnap = up ? n : nsnap;
@@ -325,23 +307,6 @@ struct Blocks {
                            : __ldg(reinterpret_cast<const uint4*>(qry + q));
     r += step;
     q += step;
-    entries(rb, qn, o);
-  }
-  // The next G blocks at once, all inside both sequences: their loads are
-  // in flight together.
-  template <int G>
-  __device__ __forceinline__ void load_group(uint4 (&rb)[G], uint4 (&qn)[G]) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      rb[g] = __ldg(reinterpret_cast<const uint4*>(ref + r + step * g));
-      qn[g] = __ldg(reinterpret_cast<const uint4*>(qry + q + step * g));
-    }
-    r += step * G;
-    q += step * G;
-  }
-  // The table entries of r block rb and the q block after qprev.
-  __device__ __forceinline__ void entries(const uint4& rb, const uint4& qn,
-                                         uint32_t (&o)[4]) {
     const uint4 qb = left ? align_block(qn, qprev, w8, w4, sh)
                           : align_block(qprev, qn, w8, w4, sh);
     qprev = qn;
@@ -365,7 +330,7 @@ struct Blocks {
 // valid, or whose window has no in-bounds lane (kend 0), walks with the
 // warp on blocks it does not use and writes the fresh state: done, maxp
 // -1 (right) or 0 (left), the rest 0.
-template <bool LEFT, bool COUNTS, bool MERGED>
+template <bool LEFT, bool COUNTS>
 __device__ __forceinline__ void walk_row(
     const uint8_t* __restrict__ ref, int64_t n_ref,
     const uint8_t* __restrict__ qry, int64_t n_qry,
@@ -414,10 +379,10 @@ __device__ __forceinline__ void walk_row(
     if (i < nb) blk.next<true>(o);
     const int k0 = 16 * i - mr;
     if (i >= i_lo && i < i_hi) {
-      walk_block<LEFT, COUNTS, true, false, MERGED>(w, o, tab, k0, kend,
+      walk_block<LEFT, COUNTS, true, false>(w, o, tab, k0, kend,
                                                     xdrop);
     } else {
-      walk_block<LEFT, COUNTS, true, true, MERGED>(w, o, tab, k0, kend,
+      walk_block<LEFT, COUNTS, true, true>(w, o, tab, k0, kend,
                                                    xdrop);
     }
     ++i;
@@ -427,42 +392,30 @@ __device__ __forceinline__ void walk_row(
   // inside both sequences (a row without lanes loads blocks it does not
   // use)
   if (__all_sync(sa::FULL, i >= i_hi || blk.inside(i_hi - i))) {
-    for (; i + K1S_GROUP <= i_hi; i += K1S_GROUP) {
-      uint4 rb[K1S_GROUP], qn[K1S_GROUP];
-      blk.load_group(rb, qn);
-#pragma unroll
-      for (int g = 0; g < K1S_GROUP; ++g) {
-        blk.entries(rb[g], qn[g], o);
-        walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
-                                                       xdrop);
-      }
-    }
-#pragma unroll 1
     for (; i < i_hi; ++i) {
       blk.next<false>(o);
-      walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
+      walk_block<LEFT, COUNTS, false, false>(w, o, tab, 0, kend,
                                                      xdrop);
     }
   } else {
     for (; i < i_hi; ++i) {
       blk.next<true>(o);
-      walk_block<LEFT, COUNTS, false, false, MERGED>(w, o, tab, 0, kend,
+      walk_block<LEFT, COUNTS, false, false>(w, o, tab, 0, kend,
                                                      xdrop);
     }
   }
   for (; i < nbw; ++i) {  // sums, masked
     if (i < nb) blk.next<true>(o);
-    walk_block<LEFT, COUNTS, false, true, MERGED>(w, o, tab, 16 * i - mr,
+    walk_block<LEFT, COUNTS, false, true>(w, o, tab, 16 * i - mr,
                                                   kend, xdrop);
   }
 
   if (row >= B) return;
   const int32_t p0 = LEFT ? 1 : 0;
-  const int32_t best = MERGED ? (w.bestk >= 0 ? w.m : sa::NEG) : w.best;
-  const bool is_new = kend > 0 && best > 0;  // maxv > its start, 0
+  const bool is_new = kend > 0 && w.best > 0;  // maxv > its start, 0
   out.done[row] = kend == 0 || !w.alive || kend < W;
   out.cum[row] = kend ? w.cum : 0;
-  out.maxv[row] = is_new ? best : 0;
+  out.maxv[row] = is_new ? w.best : 0;
   out.maxp[row] = is_new ? p0 + w.bestk : p0 - 1;
   uint32_t in_lo = 0, in_hi = 0, all_lo = 0, all_hi = 0;
   if (COUNTS && kend) {
@@ -483,8 +436,8 @@ __device__ __forceinline__ void walk_row(
 // Eight warps a block over 128 rows: even warps walk the right windows of
 // 32 rows, odd warps the left windows of the same rows. Each block fills
 // its tables in shared memory first (lookup says how they lie).
-template <bool COUNTS, bool MERGED>
-__global__ void __launch_bounds__(256, K1S_MIN_BLOCKS)
+template <bool COUNTS>
+__global__ void __launch_bounds__(256, SEQ_MIN_BLOCKS)
     first_scan_seq_kernel(const uint8_t* __restrict__ ref_pad, int64_t n_ref,
                           const uint8_t* __restrict__ query_pad,
                           int64_t n_query,
@@ -509,11 +462,11 @@ __global__ void __launch_bounds__(256, K1S_MIN_BLOCKS)
   const int row =
       blockIdx.x * SEQ_ROWS + (warp >> 1) * 32 + (threadIdx.x & 31);
   if (warp & 1) {
-    walk_row<true, COUNTS, MERGED>(ref_pad, n_ref, query_pad, n_query, loc_r,
+    walk_row<true, COUNTS>(ref_pad, n_ref, query_pad, n_query, loc_r,
                                    loc_q, valid, base, row, B, W, pad,
                                    xdrop, ref_len, query_len, left);
   } else {
-    walk_row<false, COUNTS, MERGED>(ref_pad, n_ref, query_pad, n_query,
+    walk_row<false, COUNTS>(ref_pad, n_ref, query_pad, n_query,
                                     loc_r, loc_q, valid, base, row, B, W,
                                     pad, xdrop, ref_len, query_len, right);
   }
@@ -565,11 +518,8 @@ extern "C" cudaError_t sa_first_scan_seq(
       state_of(l_done, l_cum, l_maxv, l_maxp, l_counts, l_cdel);
   if (B == 0) return cudaSuccess;
   const int grid = (B + SEQ_ROWS - 1) / SEQ_ROWS;
-  auto kernel =
-      with_counts ? (xdrop >= 0 ? first_scan_seq_kernel<true, true>
-                                : first_scan_seq_kernel<true, false>)
-                  : (xdrop >= 0 ? first_scan_seq_kernel<false, true>
-                                : first_scan_seq_kernel<false, false>);
+  auto kernel = with_counts ? first_scan_seq_kernel<true>
+                            : first_scan_seq_kernel<false>;
   kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(ref_pad), n_ref,
       static_cast<const uint8_t*>(query_pad), n_query,

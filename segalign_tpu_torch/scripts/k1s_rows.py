@@ -1,16 +1,11 @@
 """K1 on the sequences (first_scan_seq) alone, on the rows chip_smoke.py
 phase 1 gives it, for a tree against another in one call.
 
-    python -m segalign_tpu_torch.scripts.k1s_rows [label] [NAME=FLAGS ...]
+    python -m segalign_tpu_torch.scripts.k1s_rows [label]
 
 Run it from the root of each tree (the package is imported from the
-working directory), in turns, with a label naming the tree. Each
-NAME=FLAGS builds csrc/first_scan.cu alone with nvcc and those flags
-added (space-separated, e.g. "cap4=-DK1S_MIN_BLOCKS=4") into a library of
-its own, and times its sa_first_scan_seq beside the tree's own build on
-every case, in turns (the tree's, each variant, then back in reverse).
-The rows, B = 2^17 each, at W = 512 and 256 with the match counts off
-and on:
+working directory), in turns, with a label naming the tree. The rows,
+B = 2^17 each, at W = 512 and 256 with the match counts off and on:
 
   hits     the first 2^17 hits of chunk 0's forward strand of the
            repeat-1x pair (the host seeder's, query-sorted) on the padded
@@ -23,17 +18,13 @@ and on:
 
 Each case is first checked equal to first_scan_seq_plain, field by field,
 then timed: kernel_ms, 5 calls recorded into a CUDA graph and replayed,
-the median of five replays (the mean of a kernel's turns, each turn under
-"runs"). Prints the card, ptxas's registers for the kernel where the
-tree's build log has them, and one JSON line a case and kernel.
+the median of five replays. Prints the card, ptxas's registers for the
+kernel where the tree's build log has them, and one JSON line a case.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
 import numpy as np
@@ -43,8 +34,7 @@ from . import print_card, require_cuda
 from .. import _build, bench_inputs
 from ..io.encode import revcomp_codes
 from ..native import ChunkSeeder
-from ..ops.first_scan import (_empty_states, first_scan_seq,
-                              first_scan_seq_plain)
+from ..ops.first_scan import first_scan_seq, first_scan_seq_plain
 from ..pipeline.device import FIRST_W, PAD, DeviceAligner
 
 B = 1 << 17
@@ -73,40 +63,6 @@ def graph_ms(fn, reps: int = 5) -> float:
     return sorted(times)[2]
 
 
-def build_variant(name: str, flags: list):
-    """csrc/first_scan.cu built alone with `flags` added; returns a function
-    with first_scan_seq's arguments that launches its sa_first_scan_seq."""
-    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
-    d = os.path.join(_build.BUILD_DIR, "k1s_variants")
-    os.makedirs(d, exist_ok=True)
-    so = os.path.join(d, f"{name}.so")
-    r = subprocess.run(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas=-v", *flags, "-I",
-         csrc, "-shared", os.path.join(csrc, "first_scan.cu"), "-o", so],
-        capture_output=True, text=True)
-    if r.returncode != 0:
-        raise SystemExit(f"k1s_rows: nvcc failed on variant {name}:\n"
-                         f"{r.stderr}")
-    for line in _build.kernel_resources("first_scan_seq_kernel", r.stderr):
-        print(f"k1s_rows: variant {name} ptxas {line}", flush=True)
-    fn = ctypes.CDLL(so).sa_first_scan_seq
-    fn.argtypes = _build._SIGNATURES["sa_first_scan_seq"]
-    fn.restype = ctypes.c_int
-
-    def call(ref_pad, query_pad, loc_r, loc_q, valid, sub, xdrop, ref_len,
-             query_len, *, pad, W, with_counts):
-        outs, ptrs = _empty_states(loc_r.shape[0], ref_pad.device)
-        err = fn(ref_pad.data_ptr(), ref_pad.numel(), query_pad.data_ptr(),
-                 query_pad.numel(), loc_r.data_ptr(), loc_q.data_ptr(),
-                 valid.data_ptr(), sub.data_ptr(), loc_r.shape[0], W, pad,
-                 xdrop, ref_len, query_len, int(with_counts), *ptrs,
-                 _build.stream_of(ref_pad.device))
-        if err:
-            raise SystemExit(f"k1s_rows: variant {name}: CUDA error {err}")
-        return outs[0], outs[1]
-    return call
-
-
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     label = argv[0] if argv else "tree"
@@ -118,11 +74,6 @@ def main(argv=None):
             print(f"k1s_rows: ptxas {line}", flush=True)
     except (AttributeError, OSError):
         print("k1s_rows: this tree's build keeps no ptxas log", flush=True)
-    kernels = {label: first_scan_seq}
-    for spec in argv[1:]:
-        name, flags = spec.split("=", 1)
-        kernels[name] = build_variant(name, flags.split())
-    order = list(kernels) + list(kernels)[::-1]
 
     ref, query = bench_inputs.load_inputs()
     al = DeviceAligner(**bench_inputs.aligner_settings(dev))
@@ -161,26 +112,20 @@ def main(argv=None):
                 args = (r, q, lr, lq, ok, sub, al.xdrop, nr, nq)
                 kw = dict(pad=PAD, W=W, with_counts=wc)
                 want = first_scan_seq_plain(*args, **kw)
-                for name, kernel in kernels.items():
-                    got = kernel(*args, **kw)
-                    for g, w in zip(got, want):
-                        for k in w:
-                            if not torch.equal(g[k], w[k]):
-                                raise SystemExit(
-                                    f"k1s_rows: {name} {rows} W={W} "
-                                    f"counts={wc}: {k} differs from the "
-                                    f"plain version")
+                got = first_scan_seq(*args, **kw)
+                for g, w in zip(got, want):
+                    for k in w:
+                        if not torch.equal(g[k], w[k]):
+                            raise SystemExit(
+                                f"k1s_rows: {label} {rows} W={W} "
+                                f"counts={wc}: {k} differs from the "
+                                f"plain version")
                 alive = [int((~w["done"]).sum()) for w in want]
-                times = {name: [] for name in kernels}
-                for name in order:
-                    times[name].append(graph_ms(
-                        lambda: kernels[name](*args, **kw)))
-                for name, ts in times.items():
-                    print(json.dumps(dict(
-                        tree=name, rows=rows, B=B, W=W, counts=wc,
-                        kernel_ms=sum(ts) / len(ts), runs=ts,
-                        alive_right=alive[0], alive_left=alive[1],
-                        card=card)), flush=True)
+                ms = graph_ms(lambda: first_scan_seq(*args, **kw))
+                print(json.dumps(dict(
+                    tree=label, rows=rows, B=B, W=W, counts=wc,
+                    kernel_ms=ms, alive_right=alive[0],
+                    alive_left=alive[1], card=card)), flush=True)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,8 @@ direction) a thread, the warp's 32 rows together.
 - The warp runs the full recurrence until no row of it has an alive lane
   left (a vote after each block), then only the sums; a block that holds
   a masked lane of any row of the warp takes the masked step.
-- With xdrop >= 0 the best is the running max itself (MERGED); with xdrop
-  < 0 the best is kept apart from the max.
+- The best (the largest cum before the drop, strict >) is kept apart
+  from the running max, so that any xdrop, a negative one too, holds.
 - The match counts run in 8-bit fields a block, flushed into 16-bit
   fields, with a snapshot at each new best: counts and cdel come out of
   the one walk.
@@ -98,7 +98,6 @@ def _direction(ref, qry, lr, lq, ok, sub, xdrop, ref_len, query_len, pad, W,
     hi = np.zeros(R, np.uint32)
     snap_lo = np.zeros(R, np.uint32)
     snap_hi = np.zeros(R, np.uint32)
-    merged = xdrop >= 0
     full = np.ones(warps, bool)            # the warp's phase
     switched = np.full(warps, -1)          # the block after its last vote
     qprev = np.where((nb > 0)[:, None], load_block(qry, q_off), 0)
@@ -137,17 +136,11 @@ def _direction(ref, qry, lr, lq, ok, sub, xdrop, ref_len, query_len, pad, W,
             c = (cum + s).astype(np.int32)
             cum = c
             n = (n + one).astype(np.uint32)
-            if merged:
-                up = fullrow & alive & inl & (c > m)
-                m = np.where(up, c, m)
-                drop = inl & ((m - c).astype(np.int32) > xd)
-                alive = np.where(fullrow, alive & ~drop, alive)
-            else:
-                m = np.where(fullrow, np.maximum(m, c), m)
-                drop = inl & ((m - c).astype(np.int32) > xd)
-                alive = np.where(fullrow, alive & ~drop, alive)
-                up = fullrow & alive & inl & (c > best)
-                best = np.where(up, c, best)
+            m = np.where(fullrow, np.maximum(m, c), m)
+            drop = inl & ((m - c).astype(np.int32) > xd)
+            alive = np.where(fullrow, alive & ~drop, alive)
+            up = fullrow & alive & inl & (c > best)
+            best = np.where(up, c, best)
             bestk = np.where(up, k, bestk)
             nsnap = np.where(up, n, nsnap)
             snapped |= up
@@ -165,8 +158,6 @@ def _direction(ref, qry, lr, lq, ok, sub, xdrop, ref_len, query_len, pad, W,
         full = full & ~leave
 
     p0 = 1 if left else 0
-    if merged:
-        best = np.where(bestk >= 0, m, NEG)
     is_new = (kend > 0) & (best > 0)
     in_lo = np.where(is_new & counts, snap_lo, 0).astype(np.uint32)
     in_hi = np.where(is_new & counts, snap_hi, 0).astype(np.uint32)

@@ -119,8 +119,9 @@ def test_first_scan_seq(dev, pad, W, with_counts):
     """K1 on the padded sequences against its plain version (the gathers,
     then K1's plain version): anchors at every offset within a 16-byte
     block, within W of both ends of both sequences, on a repeated core,
-    rows not valid; a pad under W (the clamp moves windows) and sequences
-    whose lengths are no multiple of 16 (the last block partial). Then
+    rows not valid; a pad under W (the clamp moves windows), sequences
+    whose lengths are no multiple of 16 (the last block partial) and
+    anchors whose window start wraps in int32. Then
     rows that never drop (both windows inside the copied core), the same
     rows at xdrop 0, one row alone, and 33 rows (one warp and one row of
     the next: B no multiple of 32)."""
@@ -144,6 +145,12 @@ def test_first_scan_seq(dev, pad, W, with_counts):
                                   (n_r - edges, edges))):
         loc_r[1600 + 8 * k:1608 + 8 * k] = er
         loc_q[1600 + 8 * k:1608 + 8 * k] = eq
+    # pad + loc - W wraps in int32, up past 2^31 - 1 (where pad >= 2W)
+    # and down past -2^31, and the window's start clamps; top is the
+    # largest anchor whose lanes loc + p stay inside int32
+    top = 2**31 - W
+    loc_r[1640:1645] = [top, top - 3, -2**31, top, -2**31 + 7]
+    loc_q[1640:1645] = [top - 5, top, 100, top, -2**31]
     valid = rng.random(B) > 0.1
     valid[:1700] = True
     args = [torch.from_numpy(a) for a in (loc_r, loc_q, valid)]

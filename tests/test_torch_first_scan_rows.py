@@ -50,7 +50,9 @@ def _rows(case, W, rng):
     if case == "edges":
         # pad under W (the clamp moves windows), lengths no multiple of 16
         # (blocks read past the end), anchors at every offset within a
-        # block and within W of both ends, rows not valid, a repeated core
+        # block and within W of both ends, rows not valid, a repeated core,
+        # and anchors near -2^31, where pad + loc - W wraps in int32 to the
+        # top of the range (the window clamps to the sequence's end)
         n_r, n_q, pad = 4 * W + 23, 3 * W + 7, 40
         ref, query = _seq(rng, n_r, pad), _seq(rng, n_q, pad)
         query[pad + W:pad + 2 * W] = ref[pad + 2 * W:pad + 3 * W]
@@ -58,12 +60,14 @@ def _rows(case, W, rng):
         edges = np.array([0, 1, 15, 16, 17, W - 1, W, W + 1])
         loc_r = np.concatenate([
             W + base, W + 7 + base, edges, n_r - edges, edges, n_r - edges,
-            rng.integers(0, n_r + 1, 60), 2 * W + 100 + base])
+            rng.integers(0, n_r + 1, 60), 2 * W + 100 + base,
+            [-2**31, -2**31 + 17, -2**31, W + 5]])
         loc_q = np.concatenate([
             W + 3 + base[::-1], W + base, edges[::-1], n_q - edges,
             n_q - edges, edges, rng.integers(0, n_q + 1, 60),
-            W + 100 + base])
+            W + 100 + base, [W + 3, n_q - 5, -2**31 + 1, -2**31]])
         valid = rng.random(len(loc_r)) > 0.1
+        valid[-4:] = True
         return ref, query, loc_r, loc_q, valid, pad, n_r, n_q, 910, lanes
     # one sequence as both reference and query, each anchor the same on
     # both: equal windows, no drop but at a wall
@@ -128,8 +132,8 @@ def test_model_equals_plain(case, W, with_counts):
 
 @pytest.mark.parametrize("xdrop", [0, -1])
 def test_model_equals_plain_at_small_xdrop(xdrop):
-    """xdrop 0, the smallest the merged best holds for, and a negative
-    one, which takes the walk that keeps the best apart from the max."""
+    """xdrop 0, where a row drops at its first lane below the running max,
+    and a negative one, where every row drops at its first lane."""
     rng = np.random.default_rng(100 + xdrop)
     W = 256
     ref, query, loc_r, loc_q, valid, pad, n_r, n_q, _, _ = _rows(

@@ -52,7 +52,7 @@ def test_scale2_plain_matches_interpreted_kernel(shape):
     ("probe_env", ["dispatch", "pallas"]),
     ("probe_extension", ["gather", "overhead"]),
     ("path_walls", ["tree"]),
-    ("k1s_rows", ["tree", "cap4=-DK1S_MIN_BLOCKS=4"]),
+    ("k1s_rows", ["tree"]),
 ])
 def test_script_fails_without_cuda(script, argv):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
