@@ -37,6 +37,13 @@ last line, and without CUDA the script fails at once:
      moves, on a view one byte off a 16-byte boundary and at W = 2048; S1
      also, checked only, on starts at offsets 0, 1, 15, 16 and 1023 of a
      1024-byte slice and at both ends of the range it admits;
+     K4 on the sequences (window_scan_seq, K4s: the native route's whole
+     continuation of both directions in one launch) from the states K1 on
+     the sequences leaves on the same 2^17 hits, counts off and on, and on
+     4096 rows that never drop (one sequence as both reference and query,
+     each row walked to both ends), beside the time of the launches it took
+     the place of (the survivor steps' K2, K2 and K4 on the same rows,
+     replayed from a CUDA graph: replaced_ms) and the rows of each step;
      K5 (window_scan_wide) at the device route's first window (2^17 rows,
      tile 0, fresh state) and at a continuation (16384 rows, tile 2048,
      half alive); S1 (gather_dma_only, gather_extract_only, gather_dbuf)
@@ -47,16 +54,13 @@ last line, and without CUDA the script fails at once:
      every 250 kb chunk of bench_inputs' repeat-1x pair (4 Mbp x 4 Mbp,
      rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
-     run is printed, first_scan_seq's, K2's and K4's must be above 0, and
-     K1 on gathered rows and K3 must not launch (the path seeds on the
-     card and reads its first windows from the sequences); then the
-     serial form (SEGALIGN_OVERLAP=0: seeding, extension and finish in
-     turn on one thread) and the default form (the finish on a thread of
-     its own) once more each: every chunk-strand's array equal to the
-     first run's, both walls printed; then the default form with the
-     survivor steps cut to extend_fused.SURVIVOR_ROWS rows (as the path
-     runs) and uncut: the arrays equal, each run's peak memory and wall
-     printed, the cut's peak no higher;
+     run is printed, first_scan_seq and window_scan_seq must launch once a
+     program each, and K1 on gathered rows, K2, K3 and K4 must not launch
+     (the path seeds on the card and reads every window from the
+     sequences); then the serial form (SEGALIGN_OVERLAP=0: seeding,
+     extension and finish in turn on one thread) and the default form (the
+     finish on a thread of its own) once more each: every chunk-strand's
+     array equal to the first run's, both walls printed;
   2c. the same slice through the farm, MultiDeviceAligner with two
      aligners on cuda:0 (two worker threads and their finishers, one
      stream): every chunk-strand's array equal to phase 2's, every kernel
@@ -66,7 +70,8 @@ last line, and without CUDA the script fails at once:
      one aligner's, each run twice (farm, one, one, farm);
   2b. the same slice on the device-seeding route
      (DeviceAligner(device_seeding=True)): the same HSP arrays per
-     chunk-strand, with window_scan_wide launched;
+     chunk-strand, with K2 and window_scan_wide launched and neither K1
+     nor K4 on the sequences;
   2d. the same slice through the sharded seed table, ShardedAligner with
      four shards on cuda:0: every chunk-strand's HSPs, hit and seed counts
      equal to phase 2b's, gather_rows and window_scan_wide launched; wall
@@ -109,9 +114,9 @@ last line, and without CUDA the script fails at once:
      two aligners and the sharded table of four shards on cuda:0, whose
      outputs must be byte-identical; the RM CLI on scale-16's reference on
      both routes, identical; each run's wall, counts, peak memory and
-     launches (from its `stats` event) are printed, and first_scan_seq, K2
-     and K4 must launch on the native route, K2 and K5 on the device
-     route;
+     launches (from its `stats` event) are printed, and first_scan_seq and
+     window_scan_seq must launch on the native route, K2 and K5 on the
+     device route;
   3f. past one logical hit batch and one target block, each run's `stats`
      printed as in phase 3e: the pairwise CLI on scale-8 with
      --seq_block_size 2000000 --max_hits 131072 (4 target and 5 query
@@ -150,7 +155,7 @@ last line, and without CUDA the script fails at once:
      BENCHMARK.json's cells), cold and steady, the engine parity
      identical:row+roww256:79hsps, a gapped stage of 8351 segments, 8351
      accepted, a serial breakdown that covers at least 80% of its wall,
-     first_scan_seq, K2 and K4 launched in every timed pass
+     first_scan_seq and window_scan_seq launched in every timed pass
      (first_scan_seq in the engine parity's two, at W = 512 and 256) and
      a last line with exactly the JAX bench's keys; each pass's Mbp/s,
      peak memory and launches and the breakdown's stages are printed;
@@ -161,7 +166,7 @@ last line, and without CUDA the script fails at once:
      cell as BENCHMARK.json runs it (python -m segalign_tpu_torch.bench
      --cell pair-repeat1x-4M-native), which must pass its gate (the JAX
      package's counts and HSP digest, and the rescoring), print every
-     metric and launch first_scan_seq, K2 and K4 in a pass;
+     metric and launch first_scan_seq and window_scan_seq in a pass;
   5. the kernels as one JSON line, then the result as the last line.
 
 Imports torch, numpy, the standard library and segalign_tpu_torch, nothing
@@ -593,17 +598,24 @@ class Kernels:
         row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def check(self, name, label, err, kernel, plain, reps, nbytes, ops=0.0,
-              library=None, variant=None):
+              library=None, variant=None, reset=None):
         """Fail unless err is 0; time the kernel beside its plain version
         (wrapper_ms and plain_ms: back-to-back calls, which read the larger
         of the host's and the card's time for a call), then the kernel
         alone and, where one PyTorch call computes the same function, that
         call (kernel_ms and library_ms: replayed from a CUDA graph); the
         first check of a kernel (its main-path shape) gives its row, and a
-        check with a `variant` name goes to the row's "variants"."""
+        check with a `variant` name goes to the row's "variants". reset:
+        what `kernel` and `plain` call first to restore the inputs they
+        update in place; its own time, measured the same ways, comes off
+        theirs."""
         self.verify(name, label, err)
         wrapper_ms, plain_ms = _time_pair(kernel, plain, reps)
         ms = _graph_ms(kernel, reps)
+        if reset is not None:
+            eager, graphed = _ms(reset, reps), _graph_ms(reset, reps)
+            wrapper_ms, plain_ms = wrapper_ms - eager, plain_ms - eager
+            ms -= graphed
         library_ms = None if library is None else _graph_ms(library, reps)
         bms, by = bound_ms(nbytes, ops)
         print(f"  {name} {label}: kernel_ms {ms:.4f}, "
@@ -631,7 +643,6 @@ def main():
     sys.path.insert(0, ROOT)
     from segalign_tpu_torch import _build
     from segalign_tpu_torch.native import ChunkSeeder
-    from segalign_tpu_torch.ops import extend_fused
     from segalign_tpu_torch.ops.first_scan import first_scan, \
         first_scan_plain, first_scan_seq, first_scan_seq_plain
     from segalign_tpu_torch.ops.gather import gather_rows, \
@@ -639,11 +650,12 @@ def main():
     from segalign_tpu_torch.ops import gather_variants as gv
     from segalign_tpu_torch.ops.probe import scale2, scale2_plain
     from segalign_tpu_torch.scripts import exp_gather_variants, probe_env, \
-        probe_extension, measure_scaling, measure_sharded_vs_replicated
+        probe_extension, measure_scaling, measure_sharded_vs_replicated, \
+        k4s_rows
     from segalign_tpu_torch.scripts._scaling_worker import run_workers
     from segalign_tpu_torch.ops.extend3 import init_state
     from segalign_tpu_torch.ops.window_scan import window_scan, \
-        window_scan_plain
+        window_scan_plain, window_scan_seq, window_scan_seq_plain
     from segalign_tpu_torch.ops.window_scan_wide import window_scan_wide, \
         window_scan_wide_plain
     from segalign_tpu_torch.parallel.multi import MultiDeviceAligner
@@ -688,8 +700,9 @@ def main():
     t_n = time.time() - t0
     print(f"build: CUDA kernels {t_k:.1f} s, native host library "
           f"{t_n:.1f} s", flush=True)
-    for ln in _build.kernel_resources("first_scan_seq_kernel"):
-        print(f"build: ptxas {ln}", flush=True)
+    for name in ("first_scan_seq_kernel", "window_scan_seq_kernel"):
+        for ln in _build.kernel_resources(name):
+            print(f"build: ptxas {ln}", flush=True)
 
     # ---- the repeat-1x pair and the aligner of phase 2
     t0 = time.time()
@@ -1034,6 +1047,152 @@ def main():
                     lambda: window_scan_plain(*args, **kw), 10,
                     *scan_work(lr, lq, ~st["done"], tile, left, wc, Wc))
 
+    # K4 on the sequences (K4s): the continuation of both directions from
+    # the states K1 on the sequences leaves
+    def union_bytes(starts, ends):
+        """The bytes the spans [start, end) cover, each once."""
+        s0 = torch.cat(starts).cpu().numpy().astype(np.int64)
+        e0 = torch.cat(ends).cpu().numpy().astype(np.int64)
+        keep = e0 > s0
+        order = np.argsort(s0[keep], kind="stable")
+        s, e = s0[keep][order], e0[keep][order]
+        if not len(s):
+            return 0
+        run_end = np.maximum.accumulate(e)
+        new = np.ones(len(s), bool)
+        new[1:] = s[1:] > run_end[:-1]
+        ends_ = np.append(run_end[np.nonzero(new)[0][1:] - 1], run_end[-1])
+        return int((ends_ - s[new]).sum())
+
+    def continuation_work(seq_r, seq_q, calls, n_rows, n1, n2, wc,
+                          xdrop=910):
+        """(bytes, operations) of the continuation whose survivor steps are
+        `calls` (k4s_rows.stepped's), from the plain walk of each step's
+        windows: the in-bounds sequence bytes the windows cover, each once
+        (one sequence given as both is read once), both directions' done
+        flags, the alive rows' anchors and state in and out; six operations
+        a lane up to a row's first drop in its last window, two past it."""
+        spans = ([], [], [], [])
+        lanes_all = torch.zeros((), dtype=torch.int64, device=dev)
+        lanes_full = lanes_all.clone()
+        alive = 0
+        lanes = torch.arange(Wc, device=dev)
+        for sr, sq, lrp, lqp, cst, t, left in calls:
+            alive += lrp.numel()
+            if left:
+                n_inb = torch.minimum(lrp, lqp).long() - t
+            else:
+                n_inb = torch.minimum(n1 - lrp.long(), n2 - lqp.long()) - t
+            n_inb = n_inb.clamp(0, Wc)
+            r = gather_rows_plain(seq_r, sr, Wc)
+            q = gather_rows_plain(seq_q, sq, Wc)
+            if left:
+                r, q = r.flip(1), q.flip(1)
+            inb = lanes < n_inb[:, None]
+            cum = torch.cumsum(torch.where(inb, sub[r.long() * 8 + q.long()],
+                                           0), 1, dtype=torch.int32) \
+                + cst["cum"][:, None]
+            m = torch.maximum(torch.cummax(cum, 1).values,
+                              cst["maxv"][:, None])
+            d = torch.where(inb & (m - cum > xdrop), lanes, Wc).amin(1)
+            lanes_all += n_inb.sum()
+            lanes_full += torch.minimum(d + 1, n_inb).sum()
+            for i, lc in enumerate((lrp, lqp)):
+                # the window's in-bounds bytes: its first n_inb (right) or
+                # last n_inb (left) storage bytes
+                lo = (pad + lc.long() - t - n_inb if left
+                      else pad + lc.long() + t)
+                spans[2 * i].append(lo)
+                spans[2 * i + 1].append(lo + n_inb)
+        seq_bytes = (union_bytes(spans[0] + spans[2], spans[1] + spans[3])
+                     if seq_r is seq_q else
+                     union_bytes(spans[0], spans[1])
+                     + union_bytes(spans[2], spans[3]))
+        nbytes = (seq_bytes + 2 * n_rows + alive * (8 + 2 * STATE_BYTES)
+                  + 256)
+        lanes_all, lanes_full = int(lanes_all), int(lanes_full)
+        extra = COUNT_OPS if wc else 0
+        return nbytes, (lanes_full * (SCAN_OPS + extra)
+                        + (lanes_all - lanes_full) * (SUM_OPS + extra))
+
+    def check_k4s(seq_r, seq_q, lr, lq, ok, n1, n2, wc, label, variant,
+                  reps):
+        """K4s against window_scan_seq_plain from the states first_scan_seq
+        leaves, timed beside the survivor steps' K2 + K4 launches (their
+        calls kept by k4s_rows.stepped, replayed from a CUDA graph)."""
+        states = first_scan_seq(seq_r, seq_q, lr, lq, ok, sub, 910, n1, n2,
+                                pad=pad, W=W, with_counts=wc)
+        kw = dict(pad=pad, tile=W, W=Wc, with_counts=wc)
+        p = k4s_rows.Program((seq_r, seq_q, lr, lq, sub, 910, n1, n2),
+                             *states, kw)
+        alive = [int((~st["done"]).sum()) for st in states]
+        want = window_scan_seq_plain(seq_r, seq_q, lr, lq,
+                                     *({k: v.clone() for k, v in st.items()}
+                                       for st in states), sub, 910, n1, n2,
+                                     **kw)
+        calls, steps = [], []
+        k4s_rows.stepped(p, calls, steps)
+        p.k4s()
+        err = max(_state_err(g, w) for g, w in zip(p.states, want))
+        if not all(bool(g["done"].all()) for g in p.states):
+            fail(f"window_scan_seq {label}: a row is not done")
+        nbytes, ops = continuation_work(seq_r, seq_q, calls, lr.numel(), n1,
+                                        n2, wc)
+        del want, states
+
+        def kernel():
+            p.restore()
+            p.k4s()
+
+        def plain():
+            p.restore()
+            window_scan_seq_plain(seq_r, seq_q, lr, lq, *p.states, sub, 910,
+                                  n1, n2, **kw)
+
+        full = f"B={lr.numel()} W={Wc} tile={W} {label} " \
+               f"counts={'on' if wc else 'off'}"
+        K.check("window_scan_seq",
+                f"{full} (alive on entry: right {alive[0]}, left "
+                f"{alive[1]}; {len(steps)} survivor steps)", err, kernel,
+                plain, reps, nbytes, ops, reset=p.restore, variant=variant)
+        replaced_ms = _graph_ms(
+            lambda: [k4s_rows.step(p, c) for c in calls], reps)
+        row = K.rows["window_scan_seq"]
+        ms = (row if variant is None else row["variants"][variant])["ms"]
+        rows_right = [n for left, n in steps if not left]
+        rows_left = [n for left, n in steps if left]
+        more = "..."
+        print(f"  window_scan_seq {full}: kernel_ms {ms:.4f} against "
+              f"{replaced_ms:.4f} for the {3 * len(steps)} K2 + K2 + K4 "
+              f"launches of the survivor steps it took the place of (rows "
+              f"a step: right {rows_right[:12]}"
+              f"{more * (len(rows_right) > 12)}, left {rows_left[:12]}"
+              f"{more * (len(rows_left) > 12)}) [{card}]", flush=True)
+        row.setdefault("replaced_ms", {})[variant or full] = replaced_ms
+        row.setdefault("steps", {})[variant or full] = dict(
+            right=len(rows_right), left=len(rows_left),
+            rows_right=sum(rows_right), rows_left=sum(rows_left))
+
+    for wc in (False, True):
+        check_k4s(ref_w, q_w, loc_r, loc_q, valid, n_r, n_q, wc, "hits",
+                  None if not wc else "hits counts=on", 5)
+    # rows that never drop: one random ACGT sequence of 256 kb as both
+    # reference and query, each anchor the same on both, so every row walks
+    # every window to both ends of the sequence
+    n_s, B_s = 1 << 18, 4096
+    rng_k = np.random.default_rng(2026)
+    flat = torch.full((n_s + 2 * pad,), 6, dtype=torch.uint8, device=dev)
+    flat[pad:pad + n_s] = torch.from_numpy(
+        rng_k.integers(0, 4, n_s).astype(np.uint8)).to(dev)
+    loc_f = torch.from_numpy(rng_k.integers(0, n_s, B_s).astype(
+        np.int32)).to(dev)
+    for wc in (False, True):
+        label = f"never drop counts={'on' if wc else 'off'}"
+        check_k4s(flat, flat, loc_f, loc_f,
+                  torch.ones(B_s, dtype=torch.bool, device=dev), n_s, n_s,
+                  wc, "never drop", label, 3)
+    del flat
+
     def check_wide(lr, lq, st, tile, left, wc, label, reps):
         """K5 on the route's windows: a gather, flipped to the left."""
         off = -tile - Wc if left else tile
@@ -1134,11 +1293,13 @@ def main():
                     gather_rows_tile=gather_rows_tile,
                     first_scan=first_scan, first_scan_seq=first_scan_seq,
                     window_scan=window_scan,
+                    window_scan_seq=window_scan_seq,
                     window_scan_wide=window_scan_wide)
-    # the native route's kernels, and those it no longer launches (its
-    # first windows come from the sequences, not from gathered rows)
-    native_k = ("first_scan_seq", "gather_rows", "window_scan")
-    off_path = ("first_scan", "gather_rows_tile")
+    # the native route's kernels, and those it no longer launches (every
+    # window comes from the sequences, not from gathered rows)
+    native_k = ("first_scan_seq", "window_scan_seq")
+    off_path = ("first_scan", "gather_rows", "gather_rows_tile",
+                "window_scan", "window_scan_wide")
 
     def reset_counts():
         for w in wrappers.values():
@@ -1181,7 +1342,12 @@ def main():
     for k in off_path:
         if launches[k] != 0:
             fail(f"{k} was launched {launches[k]} times on the main path, "
-                 f"which reads its first windows from the sequences")
+                 f"which reads every window from the sequences")
+    # one K1s and one K4s launch a program
+    if launches["window_scan_seq"] != launches["first_scan_seq"]:
+        fail(f"window_scan_seq launched {launches['window_scan_seq']} "
+             f"times, first_scan_seq {launches['first_scan_seq']}: not "
+             f"once a program each")
 
     def same_results(got, want, label):
         for w, a, b in zip(work, got, want):
@@ -1217,29 +1383,6 @@ def main():
     print(f"finisher thread: every chunk-strand equal to the serial form's; "
           f"wall serial {dt_s:.3f} s, with the finisher thread {dt_a:.3f} s "
           f"({dt:.3f} s in the first run) [{card}]", flush=True)
-    # the survivor steps' cap: what it saves of the peak, and no result
-    # changes without it
-    peaks = {}
-    for cap in (extend_fused.SURVIVOR_ROWS, None):
-        saved = extend_fused.SURVIVOR_ROWS
-        extend_fused.SURVIVOR_ROWS = cap
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            results_c, dt_c, _ = timed(al, depth=bench_inputs.DEPTH)
-        finally:
-            extend_fused.SURVIVOR_ROWS = saved
-        peaks[cap] = (torch.cuda.max_memory_allocated(dev), dt_c)
-        same_results(results_c, results, f"survivor steps of at most {cap} "
-                     f"rows")
-    del results_c
-    (p_cap, t_cap), (p_all, t_all) = peaks.values()
-    print(f"survivor steps of at most {extend_fused.SURVIVOR_ROWS} rows: "
-          f"max_memory_allocated {p_cap / 2**30:.4f} GiB, wall {t_cap:.3f} "
-          f"s; uncut {p_all / 2**30:.4f} GiB, wall {t_all:.3f} s; every "
-          f"chunk-strand equal [{card}]", flush=True)
-    if p_cap > p_all:
-        fail("the survivor steps' cap raises the peak")
 
     # ---- phase 2c: the farm, two aligners on the one card
     print("phase 2c: MultiDeviceAligner(device='cuda:0', num_devices=2)"
@@ -1320,8 +1463,12 @@ def main():
           f"launches {launches_d} [{card}]", flush=True)
     same_results(results_d, results,
                  "the device route differs from the native route")
-    if launches_d["window_scan_wide"] == 0:
-        fail("window_scan_wide was not launched on the device route")
+    for k in ("gather_rows", "window_scan_wide"):
+        if launches_d[k] == 0:
+            fail(f"{k} was not launched on the device route")
+    for k in native_k:
+        if launches_d[k] != 0:
+            fail(f"{k} was launched on the device route")
     mem_d = torch.cuda.max_memory_allocated(dev)
     del al_d, results
     torch.cuda.empty_cache()
@@ -1879,6 +2026,7 @@ def main():
                    first_scan="segalign_tpu_torch/csrc/first_scan.cu",
                    first_scan_seq="segalign_tpu_torch/csrc/first_scan.cu",
                    window_scan="segalign_tpu_torch/csrc/window_scan.cu",
+                   window_scan_seq="segalign_tpu_torch/csrc/window_scan.cu",
                    window_scan_wide=(
                        "segalign_tpu_torch/csrc/window_scan_wide.cu"),
                    gather_dma_only=variants, gather_extract_only=variants,
@@ -1890,6 +2038,10 @@ def main():
         first_scan="segalign_tpu/ops/extend_pallas.py:363",
         first_scan_seq="segalign_tpu/ops/extend_pallas.py:363",
         window_scan="segalign_tpu/ops/extend_tiled.py:261",
+        # the continuation's steps (segalign_tpu/ops/extend_fused.py:438
+        # _run_tail): K2 and K4
+        window_scan_seq=("segalign_tpu/ops/extend_pallas.py:469, "
+                         "segalign_tpu/ops/extend_tiled.py:261"),
         window_scan_wide="segalign_tpu/ops/extend_pallas.py:212",
         gather_dma_only="scripts/exp_gather_variants.py:109",
         gather_extract_only="scripts/exp_gather_variants.py:109",
@@ -1897,16 +2049,18 @@ def main():
         gather_two_sided="scripts/exp_gather_variants.py:169",
         scale2="scripts/probe_env.py:163, scripts/probe_extension.py:159")
     # each kernel's launches on its path: phase 2 (the native route) for
-    # first_scan_seq, K2 and K4, phase 2b (the device-seeding route) for
-    # K5, phase 4 (the scripts) for K3 and S1-S4; K1 on gathered rows is
-    # on no path (phase 1 checks it)
-    launches["window_scan_wide"] = launches_d["window_scan_wide"]
+    # first_scan_seq and window_scan_seq, phase 2b (the device-seeding
+    # route) for K2 and K5, phase 4 (the scripts) for K3 and S1-S4; K1 on
+    # gathered rows and K4 are on no path (phase 1 checks them)
+    for k in ("gather_rows", "window_scan_wide"):
+        launches[k] = launches_d[k]
     launched_by = dict(first_scan="no path", first_scan_seq="phase 2",
-                       gather_rows="phase 2", gather_rows_tile="phase 4",
-                       window_scan="phase 2", window_scan_wide="phase 2b")
+                       gather_rows="phase 2b", gather_rows_tile="phase 4",
+                       window_scan="no path", window_scan_seq="phase 2",
+                       window_scan_wide="phase 2b")
     for name in ("first_scan", "first_scan_seq", "gather_rows",
-                 "gather_rows_tile", "window_scan", "window_scan_wide",
-                 *script_kernels):
+                 "gather_rows_tile", "window_scan", "window_scan_seq",
+                 "window_scan_wide", *script_kernels):
         r = K.rows[name]
         rows.append(dict(name=name, route="cuda", source=sources[name],
                          replaces=replaces[name], launches=launches[name],
@@ -1919,9 +2073,12 @@ def main():
                          launches_by_slice={
                              k: v[name] for k, v in by_slice.items()
                              if name in v}))
-        for k in ("variants", "replaced_ms"):
-            # {shape: timings} of the narrower first window (W = 256);
-            # {W: ms} of the launches first_scan_seq took the place of
+        for k in ("variants", "replaced_ms", "steps"):
+            # {shape: timings} of the other shapes (K1's narrower first
+            # window, W = 256; K4s's counts on and rows that never drop);
+            # {shape: ms} of the launches first_scan_seq and
+            # window_scan_seq took the place of; {shape: survivor steps
+            # and their rows} of the launches window_scan_seq replaced
             if k in r:
                 rows[-1][k] = r[k]
         if name == "gather_rows_tile":

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "sa_first_scan_seq": [_P, ctypes.c_int64, _P, ctypes.c_int64]
     + [_P] * 4 + [_I] * 7 + [_P] * 13,
     "sa_window_scan": [_P] * 11 + [_I] * 8 + [_P] * 7,
+    "sa_window_scan_seq": [_P, ctypes.c_int64, _P, ctypes.c_int64]
+    + [_P] * 3 + [_I] * 8 + [_P] * 14,
     "sa_window_scan_wide": [_P] * 11 + [_I] * 8 + [_P] * 7,
     "sa_gather_dma_only": [_P, _P, _I, _I, _P, _P],
     "sa_gather_extract_only": [_P, _P, _I, _I, _P, _P],

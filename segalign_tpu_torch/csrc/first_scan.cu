@@ -139,43 +139,6 @@ constexpr int SEQ_ROWS = 128;  // rows a block: four warps right, four left
 // blocks an SM must hold at once: caps the registers at 80 a thread
 constexpr int SEQ_MIN_BLOCKS = 3;
 
-// The aligned 16-byte block at off (a multiple of 16, maybe negative) of
-// seq, n >= 16 bytes long, the bytes outside [0, n) read as 0. Out of
-// line: only a block that crosses an end of the sequence takes it.
-__device__ __noinline__ uint4 load_block_edge(const uint8_t* __restrict__ seq,
-                                              int64_t n, int64_t off) {
-  uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    if (off + i >= 0 && off + i < n) {
-      w[i >> 2] |= static_cast<uint32_t>(seq[off + i]) << (8 * (i & 3));
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ uint4 load_block(const uint8_t* __restrict__ seq,
-                                            int64_t n, int64_t off) {
-  if (static_cast<uint64_t>(off) <= static_cast<uint64_t>(n - 16)) {
-    return __ldg(reinterpret_cast<const uint4*>(seq + off));
-  }
-  return load_block_edge(seq, n, off);
-}
-
-// Bytes [d, d + 16) of the 32 bytes lo:hi (lo at the lower address), d in
-// [0, 16): two word selects (w8 = d & 8, w4 = d & 4) and four funnel
-// shifts by sh = 8 * (d & 3) bits.
-__device__ __forceinline__ uint4 align_block(const uint4& lo, const uint4& hi,
-                                             bool w8, bool w4, int sh) {
-  const uint32_t u0 = w8 ? lo.z : lo.x, u1 = w8 ? lo.w : lo.y,
-                 u2 = w8 ? hi.x : lo.z, u3 = w8 ? hi.y : lo.w,
-                 u4 = w8 ? hi.z : hi.x, u5 = w8 ? hi.w : hi.y;
-  const uint32_t v0 = w4 ? u1 : u0, v1 = w4 ? u2 : u1, v2 = w4 ? u3 : u2,
-                 v3 = w4 ? u4 : u3, v4 = w4 ? u5 : u4;
-  return make_uint4(__funnelshift_r(v0, v1, sh), __funnelshift_r(v1, v2, sh),
-                    __funnelshift_r(v2, v3, sh), __funnelshift_r(v3, v4, sh));
-}
-
 // Four byte pairs as table entries r * 8 + q, byte j of r with byte j of
 // q. Codes are below 8; a byte of 8 or more, which no padded sequence
 // holds, still gives an entry inside the table.
@@ -284,7 +247,7 @@ struct Blocks {
   bool left;
   uint4 qprev;  // the q block before q
   __device__ __forceinline__ void start() {
-    qprev = load_block(qry, n_qry, q);
+    qprev = sa::load_block(qry, n_qry, q);
     q += step;
   }
   // Whether the next `count` blocks lie inside both sequences.
@@ -301,14 +264,14 @@ struct Blocks {
   // inside.
   template <bool GUARD>
   __device__ __forceinline__ void next(uint32_t (&o)[4]) {
-    const uint4 rb = GUARD ? load_block(ref, n_ref, r)
+    const uint4 rb = GUARD ? sa::load_block(ref, n_ref, r)
                            : __ldg(reinterpret_cast<const uint4*>(ref + r));
-    const uint4 qn = GUARD ? load_block(qry, n_qry, q)
+    const uint4 qn = GUARD ? sa::load_block(qry, n_qry, q)
                            : __ldg(reinterpret_cast<const uint4*>(qry + q));
     r += step;
     q += step;
-    const uint4 qb = left ? align_block(qn, qprev, w8, w4, sh)
-                          : align_block(qprev, qn, w8, w4, sh);
+    const uint4 qb = left ? sa::align_block(qn, qprev, w8, w4, sh)
+                          : sa::align_block(qprev, qn, w8, w4, sh);
     qprev = qn;
     o[0] = entries_word(rb.x, qb.x);
     o[1] = entries_word(rb.y, qb.y);

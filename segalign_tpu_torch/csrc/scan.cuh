@@ -1,12 +1,13 @@
 // One x-drop window of one extension direction for one row, walked by one
 // warp. Shared by first_scan.cu's K1 on gathered rows (sa_first_scan),
-// window_scan.cu (K4) and window_scan_wide.cu (K5): it takes the place of
-// the lane scans inside the TPU kernels those replace
-// (segalign_tpu/ops/extend_pallas.py first_scan_pallas and
-// window_scan_pallas, ops/extend_tiled.py window_scan_tall). K1 on the
-// padded sequences (sa_first_scan_seq, the paths' K1) does not use it: it
-// walks a thread a row and direction (first_scan.cu says why), and the
-// SMEM flag below, which read its shared-memory copies, has no caller.
+// window_scan.cu (K4, and K4s: sa_window_scan_seq, which walks a row's
+// windows one after another straight from the padded sequences) and
+// window_scan_wide.cu (K5): it takes the place of the lane scans inside the
+// TPU kernels those replace (segalign_tpu/ops/extend_pallas.py
+// first_scan_pallas and window_scan_pallas, ops/extend_tiled.py
+// window_scan_tall). K1 on the padded sequences (sa_first_scan_seq, the
+// paths' K1) walks a thread a row and direction (first_scan.cu says why);
+// it shares the sequences' block loads below (load_block, align_block).
 //
 // The recurrence is the scan form of oracle/scan_spec.py, with the carried
 // state of ops/extend3.py's window step, in int32 with wraparound:
@@ -140,24 +141,9 @@ __device__ __forceinline__ T table_at(const T* table, uint32_t offset) {
       reinterpret_cast<const unsigned char*>(table) + offset);
 }
 
-// The thread's 16-byte block `blk` of the window in scan order (zeros past
-// the window) as table offsets. SMEM: the window lies in shared memory (a
-// plain load; __ldg reads the global space only).
-template <bool LEFT, bool SMEM = false>
-__device__ __forceinline__ Offsets load_offsets(
-    const uint4* __restrict__ r4, const uint4* __restrict__ q4, int blk,
-    int nblk) {
-  uint4 rv = make_uint4(0, 0, 0, 0), qv = rv;
-  if (blk < nblk) {
-    const int src = LEFT ? nblk - 1 - blk : blk;
-    if constexpr (SMEM) {
-      rv = r4[src];
-      qv = q4[src];
-    } else {
-      rv = __ldg(r4 + src);
-      qv = __ldg(q4 + src);
-    }
-  }
+// A thread's 16 bytes of r and q (codes below 8) as table offsets.
+__device__ __forceinline__ Offsets offsets_of(const uint4& rv,
+                                              const uint4& qv) {
   Offsets o;
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
@@ -167,6 +153,131 @@ __device__ __forceinline__ Offsets load_offsets(
   }
   return o;
 }
+
+// The thread's 16-byte block `blk` of the window in scan order (zeros past
+// the window) as table offsets.
+template <bool LEFT>
+__device__ __forceinline__ Offsets load_offsets(
+    const uint4* __restrict__ r4, const uint4* __restrict__ q4, int blk,
+    int nblk) {
+  uint4 rv = make_uint4(0, 0, 0, 0), qv = rv;
+  if (blk < nblk) {
+    const int src = LEFT ? nblk - 1 - blk : blk;
+    rv = __ldg(r4 + src);
+    qv = __ldg(q4 + src);
+  }
+  return offsets_of(rv, qv);
+}
+
+// The windows of a row as scan_carry reads them: load(blk) is the calling
+// thread's scan-order block blk as table offsets, zeros past the window;
+// fetch(blk) only requests its bytes (Raw) and offsets(raw) turns them
+// into table offsets, so that a walk can ask for a chunk before it works
+// on the one before. RowLoad: gathered rows, 16-byte aligned.
+template <bool LEFT>
+struct RowLoad {
+  const uint4* __restrict__ r4;
+  const uint4* __restrict__ q4;
+  int nblk;
+  struct Raw {
+    uint4 r, q;
+  };
+  __device__ __forceinline__ Offsets operator()(int blk) const {
+    return load_offsets<LEFT>(r4, q4, blk, nblk);
+  }
+  __device__ __forceinline__ Raw fetch(int blk) const {
+    Raw raw{make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    if (blk < nblk) {
+      const int src = LEFT ? nblk - 1 - blk : blk;
+      raw.r = __ldg(r4 + src);
+      raw.q = __ldg(q4 + src);
+    }
+    return raw;
+  }
+  __device__ __forceinline__ Offsets offsets(const Raw& raw) const {
+    return offsets_of(raw.r, raw.q);
+  }
+};
+
+// The aligned 16-byte block at off (a multiple of 16, maybe negative) of
+// seq, n >= 16 bytes long, the bytes outside [0, n) read as 0. Out of
+// line: only a block that crosses an end of the sequence takes it.
+static __device__ __noinline__ uint4 load_block_edge(
+    const uint8_t* __restrict__ seq, int64_t n, int64_t off) {
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (off + i >= 0 && off + i < n) {
+      w[i >> 2] |= static_cast<uint32_t>(seq[off + i]) << (8 * (i & 3));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 load_block(const uint8_t* __restrict__ seq,
+                                            int64_t n, int64_t off) {
+  if (static_cast<uint64_t>(off) <= static_cast<uint64_t>(n - 16)) {
+    return __ldg(reinterpret_cast<const uint4*>(seq + off));
+  }
+  return load_block_edge(seq, n, off);
+}
+
+// Bytes [d, d + 16) of the 32 bytes lo:hi (lo at the lower address), d in
+// [0, 16): two word selects (w8 = d & 8, w4 = d & 4) and four funnel
+// shifts by sh = 8 * (d & 3) bits.
+__device__ __forceinline__ uint4 align_block(const uint4& lo, const uint4& hi,
+                                             bool w8, bool w4, int sh) {
+  const uint32_t u0 = w8 ? lo.z : lo.x, u1 = w8 ? lo.w : lo.y,
+                 u2 = w8 ? hi.x : lo.z, u3 = w8 ? hi.y : lo.w,
+                 u4 = w8 ? hi.z : hi.x, u5 = w8 ? hi.w : hi.y;
+  const uint32_t v0 = w4 ? u1 : u0, v1 = w4 ? u2 : u1, v2 = w4 ? u3 : u2,
+                 v3 = w4 ? u4 : u3, v4 = w4 ? u5 : u4;
+  return make_uint4(__funnelshift_r(v0, v1, sh), __funnelshift_r(v1, v2, sh),
+                    __funnelshift_r(v2, v3, sh), __funnelshift_r(v3, v4, sh));
+}
+
+// SeqLoad: windows read straight from the padded sequences, 16-byte
+// aligned: r's W bytes at ar + dr and q's at aq + dq (ar, aq multiples of
+// 16, dr, dq in [0, 16); each window inside its sequence). A block at an
+// offset that is not a multiple of 16 is cut from the two aligned blocks
+// that hold it (align_block).
+template <bool LEFT>
+struct SeqLoad {
+  const uint8_t* __restrict__ ref;
+  const uint8_t* __restrict__ qry;
+  int64_t n_ref, n_qry, ar, aq;
+  int dr, dq, nblk;
+  struct Raw {
+    uint4 rlo, rhi, qlo, qhi;
+  };
+  __device__ __forceinline__ Raw fetch(int blk) const {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    Raw raw{z, z, z, z};
+    if (blk < nblk) {
+      const int64_t src = 16 * static_cast<int64_t>(LEFT ? nblk - 1 - blk
+                                                         : blk);
+      raw.rlo = load_block(ref, n_ref, ar + src);
+      if (dr) raw.rhi = load_block(ref, n_ref, ar + src + 16);
+      raw.qlo = load_block(qry, n_qry, aq + src);
+      if (dq) raw.qhi = load_block(qry, n_qry, aq + src + 16);
+    }
+    return raw;
+  }
+  __device__ __forceinline__ Offsets offsets(const Raw& raw) const {
+    const uint4 rv =
+        dr ? align_block(raw.rlo, raw.rhi, (dr & 8) != 0, (dr & 4) != 0,
+                         8 * (dr & 3))
+           : raw.rlo;
+    const uint4 qv =
+        dq ? align_block(raw.qlo, raw.qhi, (dq & 8) != 0, (dq & 4) != 0,
+                         8 * (dq & 3))
+           : raw.qlo;
+    return offsets_of(rv, qv);
+  }
+  __device__ __forceinline__ Offsets operator()(int blk) const {
+    return offsets(fetch(blk));
+  }
+};
 
 // The thread's 16 scores in scan order and their wrapping sum. FULLY: all
 // 16 lanes are in bounds; otherwise the first nv are.
@@ -188,41 +299,44 @@ __device__ __forceinline__ int32_t scores_of(const Offsets& o,
 // every scan reads whatever the anchors say: a caller loads it before it
 // branches on the row's state, so that the window's first bytes travel
 // together with the anchors and the state, not after them.
-template <bool LEFT, bool SMEM = false>
+template <bool LEFT>
 __device__ __forceinline__ Offsets first_chunk(const uint8_t* __restrict__ r,
                                                const uint8_t* __restrict__ q,
                                                int W) {
-  return load_offsets<LEFT, SMEM>(reinterpret_cast<const uint4*>(r),
-                                  reinterpret_cast<const uint4*>(q),
-                                  threadIdx.x & 31, W / 16);
+  return load_offsets<LEFT>(reinterpret_cast<const uint4*>(r),
+                            reinterpret_cast<const uint4*>(q),
+                            threadIdx.x & 31, W / 16);
 }
 
-// Scan one window and write the row's new state. Called by all 32 threads
-// of a warp with the same arguments.
-//   o0     : first_chunk<LEFT>(r, q, W) of the calling thread.
-//   r, q   : the window's W bytes in ascending storage order, 16-byte
-//            aligned, W a multiple of 16.
+// The carried state of one row of one direction, held by the warp that
+// walks it: cum, maxv and maxp the same in every thread; count and cdel
+// base `lane`'s in threads 0-3 (unused in the others).
+struct Carry {
+  int32_t cum, maxv, maxp, count, cdel;
+};
+
+// Scan one window and update the row's carried state `st`; returns whether
+// the row is done after it (it dropped, or the window reaches a sequence
+// end). Called by all 32 threads of a warp with the same arguments.
+//   load   : the window's blocks in scan order (RowLoad, SeqLoad), W a
+//            multiple of 16.
+//   o0     : load(lane), the calling thread's first chunk.
 //   LEFT   : scan order is descending storage order (left extension).
 //   p0     : extension offset of the first scanned lane; lane k has p0 + k.
 //   lim    : lanes with extension offset < lim are in bounds. They are a
 //            prefix of the scan order, since p rises along it.
 //   tab    : the block's tables (shared memory).
-//   cum0.. : the carried state of an alive row; counts0/cdel0 point at 4
-//            ints each.
-//   SMEM   : r and q lie in shared memory (first_scan.cu's copies).
-template <bool LEFT, bool SMEM = false>
-__device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
-                            const uint8_t* __restrict__ q, int W,
-                            const Tables& tab, int32_t xdrop, int32_t p0,
-                            int64_t lim, Offsets o0, int32_t cum0,
-                            int32_t maxv0,
-                            int32_t maxp0, const int32_t* counts0,
-                            const int32_t* cdel0, bool with_counts,
-                            const State& out, int row) {
+//   FETCH  : ask for the next chunk's bytes before the passes over this
+//            one (more registers, less waiting for a warp that walks a
+//            row alone).
+template <bool LEFT, bool FETCH, typename Load>
+__device__ __forceinline__ bool scan_carry(const Load& load, int W,
+                                           const Tables& tab, int32_t xdrop,
+                                           int32_t p0, int64_t lim,
+                                           Offsets o0, Carry& st,
+                                           bool with_counts) {
   const int lane = threadIdx.x & 31;
-  const uint4* r4 = reinterpret_cast<const uint4*>(r);
-  const uint4* q4 = reinterpret_cast<const uint4*>(q);
-  const int nblk = W / 16;
+  const int32_t maxv0 = st.maxv, maxp0 = st.maxp;
   const int64_t n_inb64 = lim - p0;
   const int n_inb =
       n_inb64 < 0 ? 0 : (n_inb64 > W ? W : static_cast<int>(n_inb64));
@@ -235,12 +349,14 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
   const int kend = n_inb > 0 ? n_inb : 1;
   const int nchunks = (kend + CHUNK - 1) / CHUNK;
 
-  int32_t c = cum0, m = maxv0, best = NEG;
+  int32_t c = st.cum, m = maxv0, best = NEG;
   int bestk = -1, dk = W;
   int32_t tail = 0;  // this thread's scores of the chunks after the drop
   Offsets o = o0;
   for (int ci = 0;;) {
     const int k0 = ci * CHUNK + lane * 16;
+    typename Load::Raw next{};
+    if (FETCH && ci + 1 < nchunks) next = load.fetch((ci + 1) * 32 + lane);
     // pass 1: the 16 scores and their sum (no masks where the whole chunk
     // is in bounds, which is uniform over the warp)
     int32_t s[16];
@@ -298,7 +414,7 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
       m = cmax > m ? cmax : m;
     }
     if (++ci >= nchunks) break;
-    o = load_offsets<LEFT, SMEM>(r4, q4, ci * 32 + lane, nblk);
+    o = FETCH ? load.offsets(next) : load(ci * 32 + lane);
   }
   c = wadd(c, warp_sum(tail));
 
@@ -307,19 +423,10 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
   const int32_t Mp = is_new ? p0 + bestk : maxp0;
   const bool finish = dk < W || n_inb64 < W;
 
-  if (lane == 0) {
-    out.done[row] = finish;
-    out.cum[row] = c;
-    out.maxv[row] = Mv;
-    out.maxp[row] = Mp;
-  }
-  if (!with_counts) {
-    if (lane < 4) {
-      out.counts[row * 4 + lane] = counts0[lane];
-      out.cdel[row * 4 + lane] = cdel0[lane];
-    }
-    return;
-  }
+  st.cum = c;
+  st.maxv = Mv;
+  st.maxp = Mp;
+  if (!with_counts) return finish;
   // Matches (equal codes < 4) inside the extent (p <= Mp) and in all, over
   // every in-bounds lane: four 8-bit fields a thread (at most 16 matches a
   // chunk and 8 chunks, W being at most 4096), widened to 16-bit fields
@@ -329,9 +436,7 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
   uint32_t a_in = 0, a_all = 0;
   const int ncount = (n_inb + CHUNK - 1) / CHUNK;
   for (int ci = 0; ci < ncount; ++ci) {
-    const Offsets o =
-        ci == 0 ? o0
-                : load_offsets<LEFT, SMEM>(r4, q4, ci * 32 + lane, nblk);
+    const Offsets o = ci == 0 ? o0 : load(ci * 32 + lane);
     const int k0 = ci * CHUNK + lane * 16;
     const int nv = n_inb - k0, nin = kin - k0;
 #pragma unroll
@@ -353,10 +458,53 @@ __device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
     const int32_t n_in = ((lane & 1 ? in13 : in02) >> shift) & 0xffffu;
     const int32_t n_out = ((lane & 1 ? out13 : out02) >> shift) & 0xffffu;
     const bool new_max = Mp > maxp0;
-    const int32_t c0 = counts0[lane], d0 = cdel0[lane];
-    out.counts[row * 4 + lane] = wadd(new_max ? wadd(c0, d0) : c0, n_in);
-    out.cdel[row * 4 + lane] = wadd(new_max ? 0 : d0, n_out);
+    const int32_t c0 = st.count, d0 = st.cdel;
+    st.count = wadd(new_max ? wadd(c0, d0) : c0, n_in);
+    st.cdel = wadd(new_max ? 0 : d0, n_out);
   }
+  return finish;
+}
+
+// Write a row's state: threads 0-3 the counts, thread 0 the rest.
+__device__ __forceinline__ void store_state(const State& out, int row,
+                                            const Carry& st, bool done) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    out.done[row] = done;
+    out.cum[row] = st.cum;
+    out.maxv[row] = st.maxv;
+    out.maxp[row] = st.maxp;
+  }
+  if (lane < 4) {
+    out.counts[row * 4 + lane] = st.count;
+    out.cdel[row * 4 + lane] = st.cdel;
+  }
+}
+
+// Scan one window of gathered rows and write the row's new state: scan_carry
+// on r and q (the window's W bytes in ascending storage order, 16-byte
+// aligned) from the carried state cum0 .. (counts0/cdel0 point at 4 ints
+// each), o0 = first_chunk<LEFT>(r, q, W).
+template <bool LEFT>
+__device__ __forceinline__ void scan_window(const uint8_t* __restrict__ r,
+                            const uint8_t* __restrict__ q, int W,
+                            const Tables& tab, int32_t xdrop, int32_t p0,
+                            int64_t lim, Offsets o0, int32_t cum0,
+                            int32_t maxv0,
+                            int32_t maxp0, const int32_t* counts0,
+                            const int32_t* cdel0, bool with_counts,
+                            const State& out, int row) {
+  const int lane = threadIdx.x & 31;
+  Carry st{cum0, maxv0, maxp0, 0, 0};
+  if (lane < 4) {
+    st.count = counts0[lane];
+    st.cdel = cdel0[lane];
+  }
+  const RowLoad<LEFT> load{reinterpret_cast<const uint4*>(r),
+                           reinterpret_cast<const uint4*>(q), W / 16};
+  const bool finish = scan_carry<LEFT, false>(load, W, tab, xdrop, p0, lim,
+                                              o0, st, with_counts);
+  store_state(out, row, st, finish);
 }
 
 // Fill the block's tables from the 64-entry substitution table.

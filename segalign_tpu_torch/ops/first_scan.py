@@ -88,19 +88,24 @@ def first_scan(r2, q2, loc_r, loc_q, valid, sub, xdrop: int, ref_len: int,
 first_scan.launches = 0
 
 
-def _check_seq(ref_pad, query_pad, loc_r, loc_q, valid, sub, W):
+def check_seq(ref_pad, query_pad, loc_r, loc_q, sub, extra, W: int,
+              window: int):
+    """The argument checks of the scans that read the padded sequences
+    (K1s, K4s): 1-D uint8 sequences of at least `window` bytes, (B,) int32
+    anchors, the (64,) table and the (name, tensor, dtype, shape) tuples
+    of `extra`."""
     B = loc_r.shape[0]
     check_tensors((("ref_pad", ref_pad, torch.uint8, (ref_pad.numel(),)),
                    ("query_pad", query_pad, torch.uint8,
                     (query_pad.numel(),)),
                    ("loc_r", loc_r, torch.int32, (B,)),
                    ("loc_q", loc_q, torch.int32, (B,)),
-                   ("valid", valid, torch.bool, (B,)),
-                   ("sub", sub, torch.int32, (64,))), ref_pad.device, W)
+                   ("sub", sub, torch.int32, (64,)), *extra),
+                  ref_pad.device, W)
     for name, seq in (("ref_pad", ref_pad), ("query_pad", query_pad)):
-        if seq.numel() < 2 * W:
+        if seq.numel() < window:
             raise ValueError(f"{name} holds {seq.numel()} bytes, fewer than "
-                             f"a window's 2W = {2 * W}")
+                             f"a window's {window}")
 
 
 def first_scan_seq_plain(ref_pad, query_pad, loc_r, loc_q, valid, sub,
@@ -120,7 +125,8 @@ def first_scan_seq(ref_pad, query_pad, loc_r, loc_q, valid, sub, xdrop: int,
     window of both directions of every anchor, each window's start clamped
     as gather_rows clamps it. CPU tensors take first_scan_seq_plain; CUDA
     tensors launch csrc/first_scan.cu's sa_first_scan_seq."""
-    _check_seq(ref_pad, query_pad, loc_r, loc_q, valid, sub, W)
+    check_seq(ref_pad, query_pad, loc_r, loc_q, sub,
+              [("valid", valid, torch.bool, (loc_r.shape[0],))], W, 2 * W)
     if ref_pad.device.type == "cpu":
         return first_scan_seq_plain(
             ref_pad, query_pad, loc_r, loc_q, valid, sub, xdrop, ref_len,

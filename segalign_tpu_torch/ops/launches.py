@@ -1,5 +1,5 @@
 """What the main path's kernels did in this process: each wrapper's launch
-count (K1 on gathered rows and on the sequences, K2-K5) and the cards'
+count (K1 on gathered rows and on the sequences, K2-K5, K4s) and the cards'
 peak memory, for the benchmark's passes and the pipelines' `stats` event.
 
 Every wrapper (K1-K5, S1-S4) counts a launch with count_launch, under one
@@ -32,12 +32,12 @@ def launch_counts(since=None) -> dict:
     # imported here: the wrappers import count_launch from this module
     from .first_scan import first_scan, first_scan_seq
     from .gather import gather_rows, gather_rows_tile
-    from .window_scan import window_scan
+    from .window_scan import window_scan, window_scan_seq
     from .window_scan_wide import window_scan_wide
     kernels = dict(first_scan=first_scan, first_scan_seq=first_scan_seq,
                    gather_rows=gather_rows,
                    gather_rows_tile=gather_rows_tile,
-                   window_scan=window_scan,
+                   window_scan=window_scan, window_scan_seq=window_scan_seq,
                    window_scan_wide=window_scan_wide)
     return {k: fn.launches - (since or {}).get(k, 0)
             for k, fn in kernels.items()}

@@ -5,6 +5,13 @@ the raw (B, W) windows in ascending storage order: [loc + tile, loc + tile
 + W) for the right extension, [loc - tile - W, loc - tile) for the left
 one, which is scanned from its last byte down (extension offset p = tile +
 W - f at storage lane f). Rows done on entry pass through unchanged.
+
+window_scan_seq (K4s) is the whole continuation of both directions of a
+program in one launch: every row not done walks these windows, read
+straight from the padded sequences, tile after tile until it is done. It
+computes what the host-stepped survivor loop (extend_fused.run_survivors:
+a gather of each sequence and a window_scan a step) computes, with no
+gathered rows and no host step (csrc/window_scan.cu's second entry point).
 """
 
 from __future__ import annotations
@@ -14,7 +21,12 @@ import torch
 from .. import _build
 from .extend3 import STATE_KEYS, check_tensors
 from .extend3 import scan_raw_window as window_scan_plain
+from .first_scan import check_seq
 from .launches import count_launch
+
+# rows a window_scan_seq launch takes at most: its list holds 2 row + left
+# in an int32
+MAX_SEQ_ROWS = 1 << 29
 
 
 def check_window(r, q, loc_r, loc_q, st, sub, W):
@@ -63,3 +75,65 @@ def window_scan(r, q, loc_r, loc_q, st, sub, xdrop: int, tile: int,
 
 
 window_scan.launches = 0
+
+
+def _check_seq(ref_pad, query_pad, loc_r, loc_q, st_r, st_l, sub, W):
+    B = loc_r.shape[0]
+    states = []
+    for side, st in (("st_r", st_r), ("st_l", st_l)):
+        for k in STATE_KEYS:
+            states.append((f"{side}[{k!r}]", st[k],
+                           torch.bool if k == "done" else torch.int32,
+                           (B, 4) if k in ("counts", "cdel") else (B,)))
+    check_seq(ref_pad, query_pad, loc_r, loc_q, sub, states, W, W)
+    if B >= MAX_SEQ_ROWS:
+        raise ValueError(f"{B} rows, at most {MAX_SEQ_ROWS - 1} a launch")
+
+
+def window_scan_seq_plain(ref_pad, query_pad, loc_r, loc_q, st_r, st_l, sub,
+                          xdrop: int, ref_len: int, query_len: int, *,
+                          pad: int, tile: int, W: int, with_counts: bool):
+    """The survivor loop of each direction with the plain gather and scan
+    (run_survivors(..., plain=True) in steps of at most SURVIVOR_ROWS
+    rows). Updates st_r and st_l in place and returns them."""
+    # imported here: extend_fused imports this module
+    from . import extend_fused
+    kw = dict(pad=pad, tile=tile, W=W, with_counts=with_counts,
+              rows=extend_fused.SURVIVOR_ROWS, plain=True)
+    for st, left in ((st_r, False), (st_l, True)):
+        extend_fused.run_survivors(ref_pad, query_pad, loc_r, loc_q, st, sub,
+                                   xdrop, ref_len, query_len, left=left, **kw)
+    return st_r, st_l
+
+
+def window_scan_seq(ref_pad, query_pad, loc_r, loc_q, st_r, st_l, sub,
+                    xdrop: int, ref_len: int, query_len: int, *, pad: int,
+                    tile: int, W: int, with_counts: bool):
+    """K4s: run every row of both directions that is not done to its end,
+    W-wide windows from offset `tile` on, each window's start clamped as
+    gather_rows clamps it; ref_pad/query_pad are the 1-D uint8 padded
+    sequences (16-byte aligned). Updates the states st_r and st_l in place
+    and returns them. CPU tensors take window_scan_seq_plain; CUDA tensors
+    launch csrc/window_scan.cu's sa_window_scan_seq."""
+    _check_seq(ref_pad, query_pad, loc_r, loc_q, st_r, st_l, sub, W)
+    if ref_pad.device.type == "cpu":
+        return window_scan_seq_plain(
+            ref_pad, query_pad, loc_r, loc_q, st_r, st_l, sub, xdrop,
+            ref_len, query_len, pad=pad, tile=tile, W=W,
+            with_counts=with_counts)
+    B = loc_r.shape[0]
+    # the launch's four counters (the launcher zeroes them on the stream)
+    # and its list of rows
+    scratch = torch.empty(4 + 2 * B, dtype=torch.int32, device=loc_r.device)
+    _build.launch(
+        "sa_window_scan_seq", ref_pad.data_ptr(), ref_pad.numel(),
+        query_pad.data_ptr(), query_pad.numel(), loc_r.data_ptr(),
+        loc_q.data_ptr(), sub.data_ptr(), B, int(tile), W, int(pad),
+        int(xdrop), int(ref_len), int(query_len), int(with_counts),
+        *[st[k].data_ptr() for st in (st_r, st_l) for k in STATE_KEYS],
+        scratch.data_ptr(), _build.stream_of(ref_pad.device))
+    count_launch(window_scan_seq)
+    return st_r, st_l
+
+
+window_scan_seq.launches = 0

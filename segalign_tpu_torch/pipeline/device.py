@@ -9,9 +9,9 @@ batches, _plan_limits) and expand each range of at most HBUF hits on the
 device (ops/hits.py expand_hits); they differ in the extension engine:
 
   - native (the default): each program of at most HBUF hits is extended by
-    the fused engine (ops/extend_fused.py: K1 on the sequences, then the
-    survivors' K2 and K4 steps), cut to its candidate rows
-    (_program_candidates), and a chunk-strand's candidates are compacted
+    the fused engine (ops/extend_fused.py: K1 on the sequences, then K4s,
+    every survivor walked to its end in one launch), cut to its candidate
+    rows (_program_candidates), and a chunk-strand's candidates are compacted
     and deduped on the device (_pack_compact); the host recomputes the
     entropy counts of the candidates that need them. The host seeder
     (native.ChunkSeeder, native/seeder.cpp) is not on this route: it is

@@ -1,10 +1,11 @@
 """The port's measurement scripts: the counterparts of scripts/
 exp_gather_variants.py, probe_env.py, probe_extension.py,
 measure_scaling.py (with _scaling_worker.py) and
-measure_sharded_vs_replicated.py, and four of the port's own (the slices'
+measure_sharded_vs_replicated.py, and five of the port's own (the slices'
 walls and kernel time; the walls of the paths beside the benchmark's
 cells, a tree against another; K1 on the sequences alone and its build
-variants; the pair and both CLIs on several cards):
+variants; K4 on the sequences beside the survivor steps it replaced, on a
+pass's programs; the pair and both CLIs on several cards):
 
     python -m segalign_tpu_torch.scripts.exp_gather_variants [inner]
     python -m segalign_tpu_torch.scripts.probe_env [probe ...]
@@ -12,6 +13,7 @@ variants; the pair and both CLIs on several cards):
     python -m segalign_tpu_torch.scripts.slice_walls [runs]
     python -m segalign_tpu_torch.scripts.path_walls [label [PATH,...]]
     python -m segalign_tpu_torch.scripts.k1s_rows [label] [NAME=FLAGS ...]
+    python -m segalign_tpu_torch.scripts.k4s_rows [label]
     python -m segalign_tpu_torch.scripts.measure_scaling [--device ...]
     python -m segalign_tpu_torch.scripts.measure_sharded_vs_replicated
     python -m segalign_tpu_torch.scripts.several_cards

@@ -20,7 +20,9 @@ from segalign_tpu_torch.ops.first_scan import (first_scan, first_scan_plain,
 from segalign_tpu_torch.ops.gather import (gather_rows, gather_rows_plain,
                                            gather_rows_tile)
 from segalign_tpu_torch.ops.window_scan import (window_scan,
-                                                window_scan_plain)
+                                                window_scan_plain,
+                                                window_scan_seq,
+                                                window_scan_seq_plain)
 from segalign_tpu_torch.ops.window_scan_wide import (window_scan_wide,
                                                      window_scan_wide_plain)
 
@@ -185,6 +187,197 @@ def test_first_scan_seq(dev, pad, W, with_counts):
         if xdrop == 910:   # the equal windows ran to their end
             for w in want:
                 assert not w["done"][:min(n, 160)].any()
+
+
+# ---- K4s: the survivors of both directions walked to their ends
+
+def _k4s_inputs(rng, n_r, n_q, pad, B, first_w, core):
+    """Padded sequences of random bases whose query holds two copies of
+    `core`-long stretches of the reference: one at 1000 in the reference
+    and 1011 in the query (r and q at different offsets mod 16), one at
+    the reference's start that ends the query; walls, N and soft-masked
+    runs outside the copies. B anchors: random ones (window starts at every
+    offset mod 16 in r and q), anchors inside both copies (rows that walk
+    up to core / W windows and run into the query's end or the
+    reference's start), anchors within W of both ends of both sequences
+    and of the copies' ends. The states first_scan_seq_plain leaves at
+    `first_w`, with a third of the other rows set alive in carried states
+    (some already past the drop)."""
+    seqs = []
+    for n in (n_r, n_q):
+        s = np.full(n + 2 * pad, 6, np.uint8)
+        s[pad:pad + n] = rng.integers(0, 4, n)
+        seqs.append(s)
+    ref, query = seqs
+    a0, b0, b1 = 1000, 1011, n_q - core
+    assert b1 >= b0 + core + 400 and n_r >= a0 + core + 400
+    query[pad + b0:pad + b0 + core] = ref[pad + a0:pad + a0 + core]
+    query[pad + b1:pad + n_q] = ref[pad:pad + core]
+    for s, lo, hi in ((ref, a0 + core + 100, n_r),
+                      (query, b0 + core + 100, b1 - 100)):
+        at = pad + rng.integers(lo, hi - 40, 3)
+        s[at[0]] = 7
+        s[at[1]:at[1] + 30] = 4
+        s[at[2]:at[2] + 10] = 5
+    loc_r = rng.integers(0, n_r + 1, B).astype(np.int32)
+    loc_q = rng.integers(0, n_q + 1, B).astype(np.int32)
+    k = min(B // 4, 400)
+    t = rng.integers(0, core, k)
+    loc_r[:k // 2], loc_q[:k // 2] = a0 + t[:k // 2], b0 + t[:k // 2]
+    loc_r[k // 2:k], loc_q[k // 2:k] = t[k // 2:], b1 + t[k // 2:]
+    edges = np.array([0, 1, 15, 16, 17, first_w - 1, first_w, first_w + 1,
+                      core - 1])
+    e = len(edges)
+    fixed = k
+    if B >= k + 4 * e:
+        fixed = k + 4 * e
+        loc_r[k:k + e], loc_q[k:k + e] = edges, n_q - edges
+        loc_r[k + e:k + 2 * e], loc_q[k + e:k + 2 * e] = n_r - edges, edges
+        loc_r[k + 2 * e:k + 3 * e] = edges
+        loc_q[k + 2 * e:k + 3 * e] = b1 + edges
+        loc_r[k + 3 * e:fixed] = a0 + core - 1 - edges
+        loc_q[k + 3 * e:fixed] = b0 + core - 1 - edges
+    valid = rng.random(B) > 0.05
+    valid[:fixed] = True
+    seqs = torch.from_numpy(ref), torch.from_numpy(query)
+    lr, lq = torch.from_numpy(loc_r), torch.from_numpy(loc_q)
+    sub = torch.from_numpy(SUB)
+    st_r, st_l = first_scan_seq_plain(*seqs, lr, lq, torch.from_numpy(valid),
+                                      sub, 910, n_r, n_q, pad=pad, W=first_w,
+                                      with_counts=True)
+    for st in (st_r, st_l):
+        carried = np.nonzero(rng.random(B) < 0.33)[0]
+        c = torch.from_numpy(carried[carried >= fixed])
+        cum = torch.from_numpy(rng.integers(-300, 4000, c.numel()).astype(
+            np.int32))
+        st["done"][c] = False
+        st["cum"][c] = cum
+        st["maxv"][c] = cum + torch.from_numpy(
+            rng.integers(0, 1000, c.numel()).astype(np.int32))
+        st["maxp"][c] = torch.from_numpy(
+            rng.integers(0, first_w + 1, c.numel()).astype(np.int32))
+    return seqs, lr, lq, (st_r, st_l), sub
+
+
+def _k4s_check(dev, seqs, lr, lq, states, sub, n_r, n_q, *, pad, tile, W,
+               with_counts, xdrop=910):
+    """window_scan_seq on the card against its plain version on the CPU,
+    from the same states; one launch. Returns the plain version's states
+    and the rows alive on entry of each direction."""
+    alive = [int((~st["done"]).sum()) for st in states]
+    want = window_scan_seq_plain(*seqs, lr, lq,
+                                 *({k: v.clone() for k, v in st.items()}
+                                   for st in states), sub, xdrop, n_r, n_q,
+                                 pad=pad, tile=tile, W=W,
+                                 with_counts=with_counts)
+    got = [{k: v.to(dev) for k, v in st.items()} for st in states]
+    before = window_scan_seq.launches
+    out = window_scan_seq(*(s.to(dev) for s in seqs), lr.to(dev), lq.to(dev),
+                          *got, sub.to(dev), xdrop, n_r, n_q, pad=pad,
+                          tile=tile, W=W, with_counts=with_counts)
+    torch.cuda.synchronize()
+    assert window_scan_seq.launches == before + 1
+    for w, g, o in zip(want, got, out):
+        assert o is g                      # updated in place
+        _same(w, g)
+        assert bool(w["done"].all())
+    return want, alive
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("W,tile", [(2048, 512), (80, 256)])
+def test_window_scan_seq(dev, W, tile, with_counts):
+    """K4s against its plain version: random anchors (window starts at
+    every offset mod 16 in r and q), rows that walk 50 windows or more
+    along a copied stretch, rows that run into either end of either
+    sequence, carried states, rows past the drop on entry."""
+    rng = np.random.default_rng([4, W, tile, with_counts])
+    core = 60 * W + 1000
+    n_r, n_q, pad, B = core + 30_003, 2 * core + 20_001, 2048, 3001
+    seqs, lr, lq, states, sub = _k4s_inputs(rng, n_r, n_q, pad, B, tile,
+                                            core)
+    want, alive = _k4s_check(dev, seqs, lr, lq, states, sub, n_r, n_q,
+                             pad=pad, tile=tile, W=W,
+                             with_counts=with_counts)
+    assert min(alive) > 200
+    # rows that walked 50 windows or more, both ways
+    for w in want:
+        assert int((w["maxp"] >= tile + 50 * W).sum()) > 20
+    # rows whose right extension ran to the query's last base, and left
+    # ones to the reference's first
+    assert bool((want[0]["maxp"] == n_q - 1 - lq).any())
+    assert bool((want[1]["maxp"] == lr).any())
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("B", [1, 33, 129, 1000])
+@pytest.mark.parametrize("alive", ["none", "one", "all"])
+def test_window_scan_seq_batches(dev, alive, B, with_counts):
+    """No row alive, one row alive and every row alive, at B not a
+    multiple of 32 or of the 128 rows a claim takes; xdrop 0 as well."""
+    rng = np.random.default_rng([5, len(alive), B, with_counts])
+    n, pad, W, tile = 40_000, 2048, 2048, 512
+    seqs, lr, lq, states, sub = _k4s_inputs(rng, n, n, pad, B, tile, 9000)
+    for st in states:
+        st["done"][:] = alive != "all"
+        if alive == "one":
+            st["done"][B // 2] = False
+    for xdrop in (910, 0):
+        _k4s_check(dev, seqs, lr, lq, states, sub, n, n, pad=pad, tile=tile,
+                   W=W, with_counts=with_counts, xdrop=xdrop)
+
+
+def test_window_scan_seq_two_streams(dev):
+    """Launches on two streams at once, each with its own counters: every
+    result equals the plain version's (the farm's two aligners share a
+    card)."""
+    rng = np.random.default_rng(6)
+    n, pad, W, tile, B = 120_000, 2048, 2048, 512, 4000
+    seqs, lr, lq, states, sub = _k4s_inputs(rng, n, n, pad, B, tile, 30_000)
+    want = window_scan_seq_plain(*seqs, lr, lq,
+                                 *({k: v.clone() for k, v in st.items()}
+                                   for st in states), sub, 910, n, n,
+                                 pad=pad, tile=tile, W=W, with_counts=False)
+    d_seqs = [s.to(dev) for s in seqs]
+    d_lr, d_lq, d_sub = lr.to(dev), lq.to(dev), sub.to(dev)
+    copies = [[{k: v.to(dev) for k, v in st.items()} for st in states]
+              for _ in range(8)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for i, c in enumerate(copies):
+        with torch.cuda.stream(streams[i % 2]):
+            window_scan_seq(*d_seqs, d_lr, d_lq, *c, d_sub, 910, n, n,
+                            pad=pad, tile=tile, W=W, with_counts=False)
+    torch.cuda.synchronize()
+    for c in copies:
+        for w, g in zip(want, c):
+            _same(w, g)
+
+
+def test_extend_fields_program_makes_no_host_sync(dev):
+    """extend_fields_program on CUDA tensors under
+    torch.cuda.set_sync_debug_mode("error"): K1s, K4s and finalize queue
+    their work without waiting for the card; the fields equal the CPU's."""
+    from segalign_tpu_torch.ops.extend_fused import extend_fields_program
+    rng = np.random.default_rng(7)
+    n, pad, B = 60_000, 2048, 3000
+    seqs, lr, lq, _, sub = _k4s_inputs(rng, n, n, pad, B, 512, 20_000)
+    args = (lr, lq, B - 7, sub)
+    want = extend_fields_program(*seqs, *args, 910, 3000, n, n, pad=pad)
+    d = [s.to(dev) for s in seqs] + [a.to(dev) if torch.is_tensor(a) else a
+                                     for a in args]
+    torch.cuda.synchronize()
+    before = window_scan_seq.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = extend_fields_program(*d, 910, 3000, n, n, pad=pad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert window_scan_seq.launches == before + 1
+    assert int(want["candidate"].sum()) > 10
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
@@ -645,7 +838,7 @@ def test_scan_full_batch(dev, name):
 
 
 def test_every_launcher_counts_1000_launches(dev):
-    """Each of the ten launchers called 1000 times through its wrapper:
+    """Each launcher called 1000 times through its wrapper:
     the count rises by 1000 and no launch is refused."""
     from segalign_tpu_torch.ops import gather_variants as gv
     from segalign_tpu_torch.ops.extend3 import init_state
@@ -661,6 +854,7 @@ def test_every_launcher_counts_1000_launches(dev):
     r = r2[:, W:].contiguous()
     valid = torch.ones(B, dtype=torch.bool, device=dev)
     st = init_state(B, -1, valid, dev)
+    done = init_state(B, -1, ~valid, dev)
     x = torch.ones(64, device=dev)
     kw = dict(W=W, left=False, with_counts=False)
     calls = [
@@ -675,6 +869,10 @@ def test_every_launcher_counts_1000_launches(dev):
                                           n, **kw)),
         (window_scan_wide, lambda: window_scan_wide(r, r, loc, loc, st, sub,
                                                     910, 0, n, n, **kw)),
+        # every row done: the launch reads the flags and walks nothing
+        (window_scan_seq, lambda: window_scan_seq(
+            seq, seq, loc, loc, done, done, sub, 910, n, n, pad=0, tile=W,
+            W=W, with_counts=False)),
         (gv.gather_dma_only, lambda: gv.gather_dma_only(seq, starts, W)),
         (gv.gather_extract_only,
          lambda: gv.gather_extract_only(seq, starts, W)),

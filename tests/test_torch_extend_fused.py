@@ -71,6 +71,60 @@ def test_extend_fields_program_matches_jax_xla(with_counts):
                                           err_msg=f"W={W} {k}")
 
 
+def _copies(seed, n, B):
+    """A pair in which the query repeats two long stretches of the
+    reference with a few substitutions: one at 1500 (the query's at 1509),
+    one at the reference's start that ends the query. Half the hits lie on
+    the copies, so their extensions run through several W_CONT windows
+    and into the query's end or the reference's start; the rest are
+    random, a few within a window of the sequences' ends."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, n).astype(np.uint8)
+    query = rng.integers(0, 4, n).astype(np.uint8)
+    core = 4200
+    query[1509:1509 + core] = ref[1500:1500 + core]
+    query[n - core:] = ref[:core]
+    sites = rng.integers(0, n, 40)
+    query[sites] = (query[sites] + 1) % 4
+    rl = rng.integers(0, n, B).astype(np.int32)
+    ql = rng.integers(0, n, B).astype(np.int32)
+    t = rng.integers(0, core, B // 2)
+    d = B // 4
+    rl[:d], ql[:d] = 1500 + t[:d], 1509 + t[:d]
+    rl[d:2 * d], ql[d:2 * d] = t[d:], n - core + t[d:]
+    rl[2 * d:2 * d + 6] = [0, 1, n - 1, n - 30, n - 900, 17]
+    ql[2 * d:2 * d + 6] = [n - 3, 5, 0, n - 31, 2, n - 1]
+    return ref, query, rl, ql
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("seed", [47, 48])
+def test_window_scan_seq_through_extend_fields_program(seed, with_counts):
+    """The continuation (window_scan_seq, its plain version on the CPU)
+    through extend_fields_program against the JAX program on rows that
+    stay alive across several W_CONT windows and rows that run into either
+    end of either sequence, counts off and on; the JAX program's shapes
+    are the test above's, so its compile is reused."""
+    ref, query, rl, ql = _copies(seed, 10_000, 256)
+    n, pad, m = len(ref), 2048, 250
+    want = jf.extend_fields_program(
+        jnp.asarray(pad_sequence(ref, pad)),
+        jnp.asarray(pad_sequence(query, pad)), jnp.asarray(rl),
+        jnp.asarray(ql), m, jnp.asarray(SUB), 910, 1800, n, n, pad=pad,
+        W=256, CONT=128, engine="xla", W_CONT=1024, UNROLL=2,
+        with_counts=with_counts)
+    want = {k: np.asarray(want[k]) for k in FIELDS}
+    got = _port(ref, query, rl, ql, m, pad, 256, 1024, with_counts)
+    for k in FIELDS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # extensions three W_CONT windows long and more, and ones that end at
+    # a sequence's end on either side
+    assert (want["length"] > 256 + 3 * 1024).sum() > 20
+    at_left = (want["rs"] == 0) & want["candidate"]
+    at_right = (want["qs"] + want["length"] == n - 1) & want["candidate"]
+    assert at_left.any() and at_right.any()
+
+
 @pytest.mark.parametrize("rows", [1, 7, 64])
 def test_survivor_steps_cut_into_parts_change_no_field(rows, monkeypatch):
     """A survivor step of more alive rows than SURVIVOR_ROWS runs as several

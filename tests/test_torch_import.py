@@ -86,9 +86,10 @@ def test_cpu_tensors_launch_no_kernel():
     from segalign_tpu_torch.ops.extend_fused import extend_fields_program
     from segalign_tpu_torch.ops.first_scan import first_scan, first_scan_seq
     from segalign_tpu_torch.ops.gather import gather_rows, gather_rows_tile
-    from segalign_tpu_torch.ops.window_scan import window_scan
+    from segalign_tpu_torch.ops.window_scan import window_scan, \
+        window_scan_seq
     wrappers = (gather_rows, gather_rows_tile, first_scan, first_scan_seq,
-                window_scan)
+                window_scan, window_scan_seq)
     before = [w.launches for w in wrappers]
     rng = np.random.default_rng(0)
     n, pad = 3000, 2048
