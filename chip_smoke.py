@@ -62,12 +62,21 @@ last line, and without CUDA the script fails at once:
      rng 2024) with bench_inputs' aligner settings, which must give the
      8351 HSPs the JAX package gives; every kernel's launch count in that
      run is printed, first_scan_seq and window_scan_seq must launch once a
-     program each, and K1 on gathered rows, K2, K3 and K4 must not launch
-     (the path seeds on the card and reads every window from the
-     sequences); then the serial form (SEGALIGN_OVERLAP=0: seeding,
-     extension and finish in turn on one thread) and the default form (the
-     finish on a thread of its own) once more each: every chunk-strand's
-     array equal to the first run's, both walls printed;
+     program each (a replay of the program's CUDA graph counts both), and
+     K1 on gathered rows, K2, K3 and K4 must not launch (the path seeds
+     on the card and reads every window from the sequences); then the
+     serial form (SEGALIGN_OVERLAP=0: seeding, extension and finish in
+     turn on one thread) and the default form (the finish on a thread of
+     its own) once more each: every chunk-strand's array equal to the
+     first run's, both walls printed; then the programs' graph replays
+     against extend_program run eagerly on every eighth chunk-strand and
+     the last, program after program, and the pack's graph against
+     pack_candidates, a serial pass with each
+     chunk-strand's programs and pack under set_sync_debug_mode("error")
+     (its arrays equal to the first run's), the host time a program
+     (median, p90), the serial stages and the re-extended chunk-strands,
+     beside the figures before the program graphs (phase 4b's cell
+     prints the busy share beside its figure before them);
   2c. the same slice through the farm, MultiDeviceAligner with two
      aligners on cuda:0 (two worker threads and their finishers, one
      stream): every chunk-strand's array equal to phase 2's, every kernel
@@ -432,6 +441,121 @@ SCAN_OPS, SUM_OPS, COUNT_OPS = 6, 2, 4
 STATE_BYTES = 45   # done 1, cum, maxv, maxp 4 each, counts and cdel 16 each
 
 
+# a cell-1 pass's figures before the programs became graph replays
+# (PERF.md, the native pair on an NVIDIA H100 80GB HBM3 at 700 W): host
+# time a program, serial stages (median, s) and the busy share
+BEFORE_PROGRAM_US = 1000
+BEFORE_SERIAL_S = dict(extend=0.136, seeds=0.058, pack=0.024,
+                       host_dedup=0.014, plan=0.007)
+BEFORE_BUSY_SHARE = (0.080, 0.121)
+
+
+def check_program_graphs(al, work, env, card):
+    """Phase 2's check of the native route's programs as CUDA graphs
+    (pipeline/program.py): on every eighth chunk-strand and the last, each
+    program's count and candidate rows from the graph's replay against
+    extend_program run eagerly on the card, and the pack's graph against
+    pack_candidates run eagerly; one serial pass whose
+    chunk-strands run from their first program to their pack under
+    torch.cuda.set_sync_debug_mode("error"); the host time of a program
+    (a default pass's extend spans, median and p90), the serial stages
+    (SEGALIGN_SYNC=1 and SEGALIGN_OVERLAP=0, the per-layer pass's form).
+    Returns (the sync-checked pass's results, a printable summary)."""
+    import numpy as np
+    import torch
+    from segalign_tpu_torch.pipeline import device as devmod
+    from segalign_tpu_torch.pipeline.program import pack_candidates
+
+    def snapshots(s, runner):
+        snaps = []
+
+        def program(rev):
+            run = runner(rev)
+
+            def step(rows):
+                run(rows)
+                n = int(al._buf.n)
+                snaps.append((n, al._buf.rows[:n].clone()))
+            return step
+
+        al._program = program
+        try:
+            al._dispatch_rows(s)
+        finally:
+            del al._program
+        return snaps
+
+    n_prog = n_rows = 0
+    for w in work[::8] + work[-1:]:
+        s = al._seed_chunk(w.chunk_start, w.chunk_end, w.rev, w.window,
+                           into=al._buffers())
+        if not s.num_hits:
+            continue
+        graphed = snapshots(s, al._program)
+        eager = snapshots(s, lambda rev: lambda rows: al._program_fn(rev)())
+        if len(graphed) != len(eager) or any(
+                a != b or not torch.equal(ra, rb)
+                for (a, ra), (b, rb) in zip(graphed, eager)):
+            fail(f"chunk {w.chunk_start}:{w.chunk_end} rev={w.rev}: the "
+                 f"programs' graph replays differ from extend_program run "
+                 f"eagerly")
+        n_prog += len(graphed)
+        n_rows += graphed[-1][0]
+        (out, counts), (want, want_counts) = (
+            al._pack(), pack_candidates(al._buf, al._kept_rows))
+        kept = int(want_counts[0])
+        if not torch.equal(counts, want_counts) or \
+                not torch.equal(out[:kept], want[:kept]):
+            fail(f"chunk {w.chunk_start}:{w.chunk_end} rev={w.rev}: the "
+                 f"pack's graph replay differs from pack_candidates run "
+                 f"eagerly")
+
+    extend = al._extend_seeded
+
+    def sync_checked(s):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return extend(s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    al._extend_seeded = sync_checked
+    try:
+        with env(SEGALIGN_OVERLAP="0"):
+            checked = al.map_chunks(work)
+    finally:
+        del al._extend_seeded
+
+    devmod.STAGE_SPANS = spans = []
+    try:
+        al.map_chunks(work)
+    finally:
+        devmod.STAGE_SPANS = None
+    us = np.array([(e - b) / 1e3 for name, b, e in spans
+                   if name == "extend"])
+    med, p90 = np.percentile(us, [50, 90])
+    with env(SEGALIGN_SYNC="1", SEGALIGN_OVERLAP="0"):
+        devmod.reset_stage_totals()
+        t0 = time.time()
+        al.map_chunks(work)
+        wall = time.time() - t0
+        serial = {k: round(v, 4) for k, v in devmod.STAGE_TOTALS.items()}
+    return checked, (
+        f"program graphs: {n_prog} programs of {len(work[::8]) + 1} "
+        f"chunk-strands ({n_rows} candidate rows) and their packs replayed "
+        f"equal to extend_program and pack_candidates run eagerly; a "
+        f"serial pass from each chunk-strand's "
+        f"first program to its pack under set_sync_debug_mode('error') "
+        f"raised nothing; host time a program median {med:.1f} us, p90 "
+        f"{p90:.1f} us over {len(us)} programs (before the graphs about "
+        f"{BEFORE_PROGRAM_US} us); serial stages {serial}, wall "
+        f"{wall:.3f} s (medians before the graphs {BEFORE_SERIAL_S}); "
+        f"candidate "
+        f"rows {al._buf.cand_rows}, kept rows {al._kept_rows}, graph pool "
+        f"and caches: memory_reserved "
+        f"{torch.cuda.memory_reserved(al.device) / 2**30:.4f} GiB [{card}]")
+
+
 def bound_ms(nbytes: float, ops: float = 0.0):
     """The least time the card could take: (ms, "bytes" or "operations")."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -525,7 +649,7 @@ def scale_line(label: str, r: dict, module_is_rm: bool, card: str) -> str:
             f"chunk-strands, {st['hit_batches']} hit batches, "
             f"{st['split_chunks']} cut by max_hits, hits a chunk-strand "
             f"{st['min_chunk_hits']}-{st['max_chunk_hits']}, "
-            f"max_memory_allocated "
+            f"{st['reextended']} extended again, max_memory_allocated "
             f"{max(peak) / 2**30 if peak else 0:.2f} GiB, launches "
             f"{st['launches']}, sha256 {r['sha256']} [{card}]")
 
@@ -1468,11 +1592,16 @@ def main():
         if launches[k] != 0:
             fail(f"{k} was launched {launches[k]} times on the main path, "
                  f"which reads every window from the sequences")
-    # one K1s and one K4s launch a program
-    if launches["window_scan_seq"] != launches["first_scan_seq"]:
+    # one K1s and one K4s launch a program: a replay of the program's
+    # graph counts both (a chunk-strand extended again runs its programs
+    # twice)
+    programs = sum(-(-r.num_hits // al.HBUF) * (1 + r.reextended)
+                   for r in results)
+    if not (launches["window_scan_seq"] == launches["first_scan_seq"]
+            == programs):
         fail(f"window_scan_seq launched {launches['window_scan_seq']} "
              f"times, first_scan_seq {launches['first_scan_seq']}: not "
-             f"once a program each")
+             f"once a program each ({programs} programs)")
 
     def same_results(got, want, label):
         for w, a, b in zip(work, got, want):
@@ -1508,6 +1637,13 @@ def main():
     print(f"finisher thread: every chunk-strand equal to the serial form's; "
           f"wall serial {dt_s:.3f} s, with the finisher thread {dt_a:.3f} s "
           f"({dt:.3f} s in the first run) [{card}]", flush=True)
+    results_s, said = check_program_graphs(al, work, _env, card)
+    same_results(results_s, results, "the pass under the sync check "
+                 "differs from the first run")
+    del results_s
+    print(said, flush=True)
+    print(f"re-extended chunk-strands in the first run: "
+          f"{sum(r.reextended for r in results)} [{card}]", flush=True)
 
     # ---- phase 2c: the farm, two aligners on the one card
     print("phase 2c: MultiDeviceAligner(device='cuda:0', num_devices=2)"
@@ -2189,6 +2325,13 @@ def main():
           f"{detail['counts']}, launches {detail['launches']}, layers "
           f"{detail['layers']}, profile {detail['profile']} [{card}]",
           flush=True)
+    layers, prof = detail["layers"] or {}, detail["profile"] or {}
+    print(f"cell {c.name}: device busy share {prof.get('busy_share')} "
+          f"(before the graphs {BEFORE_BUSY_SHARE[0]}-"
+          f"{BEFORE_BUSY_SHARE[1]}), serial "
+          f"stages {layers.get('stages_s')}, serial wall "
+          f"{layers.get('serial_wall_s')} s (medians before the graphs "
+          f"{BEFORE_SERIAL_S}) [{card}]", flush=True)
 
     # ---- phase 5: results
     rows = []

@@ -3,9 +3,11 @@
 Counterpart of segalign_tpu/ops/extend_fused.py extend_fields_program and
 _extend_core: the same fields dict (candidate, rs, qs, length, total,
 counts) for the same rows. extend_fields is the engine of both routes: the
-native route's programs (extend_fields_program, counts off) and the
-device-seeding route's hit ranges and the sharded table's
-(extend3.extend_hits_windowed, counts on).
+native route's programs (pipeline/program.py extend_program, counts off)
+and the device-seeding route's hit ranges and the sharded table's
+(extend3.extend_hits_windowed, counts on). extend_fields_program is the
+JAX program's signature over it, which the tests hold to the JAX
+package.
 
   1. The first window of both directions, read straight from the padded
      sequences (first_scan_seq: what first_scan computes on one 2W-wide
@@ -97,7 +99,7 @@ def extend_fields(ref_pad, query_pad, loc_r, loc_q, valid, sub, xdrop: int,
                   W: int, W_CONT: int, with_counts: bool):
     """The fields dict of finalize for the rows where `valid` (the other
     rows start done and finalize to zero): K1s, K4s, finalize. The engine
-    of both routes (extend_fields_program, extend3.extend_hits_windowed).
+    of both routes (program.extend_program, extend3.extend_hits_windowed).
 
     ref_pad/query_pad: 1-D uint8 padded sequences with `pad` bytes before
     position 0 and at least `pad` after the end; loc_r/loc_q: (B,) int32

@@ -111,11 +111,23 @@ def check_seq(ref_pad, query_pad, loc_r, loc_q, sub, extra, W: int,
 def first_scan_seq_plain(ref_pad, query_pad, loc_r, loc_q, valid, sub,
                          xdrop: int, ref_len: int, query_len: int, *,
                          pad: int, W: int, with_counts: bool):
-    """The two gathers (gather_rows_plain), then first_scan_plain."""
-    r2 = gather_rows_plain(ref_pad, pad + loc_r - W, 2 * W)
-    q2 = gather_rows_plain(query_pad, pad + loc_q - W, 2 * W)
-    return first_scan_plain(r2, q2, loc_r, loc_q, valid, sub, xdrop,
-                            ref_len, query_len, W=W, with_counts=with_counts)
+    """The two gathers (gather_rows_plain), then first_scan_plain, over
+    the valid rows: a row not valid starts done, and first_scan_plain
+    leaves its fresh state as it is (the native route's programs on the
+    CPU mask the rows outside an RM window, which would cost the gathers
+    and scans of every hit)."""
+    B, dev = loc_r.shape[0], loc_r.device
+    st_r, st_l = init_state(B, -1, valid, dev), init_state(B, 0, valid, dev)
+    rows = torch.nonzero(valid).squeeze(1)
+    lr, lq = loc_r[rows], loc_q[rows]
+    r2 = gather_rows_plain(ref_pad, pad + lr - W, 2 * W)
+    q2 = gather_rows_plain(query_pad, pad + lq - W, 2 * W)
+    out = first_scan_plain(r2, q2, lr, lq, valid[rows], sub, xdrop, ref_len,
+                           query_len, W=W, with_counts=with_counts)
+    for st, part in zip((st_r, st_l), out):
+        for k in STATE_KEYS:
+            st[k][rows] = part[k]
+    return st_r, st_l
 
 
 def first_scan_seq(ref_pad, query_pad, loc_r, loc_q, valid, sub, xdrop: int,

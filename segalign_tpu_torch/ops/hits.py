@@ -16,11 +16,16 @@ def expand_hits(cum, starts, qpos, pos_table, g0: int, g1: int,
                 seed_size: int, *, HBUF: int, with_seed: bool = False):
     """Hits [g0, g1) (at most HBUF) as (ref_loc, query_loc, valid), each
     (HBUF,); locations include the +seed_size offset of the reference's
-    find_hits. Rows past g1 - g0 are not valid. with_seed adds a fourth
-    array: the index into cum of each hit's seed."""
+    find_hits. Rows past g1 - g0 are not valid. g0 and g1 are ints or
+    0-d int32 tensors on cum's device (the native route's programs, whose
+    graph reads them from the device). with_seed adds a fourth array: the
+    index into cum of each hit's seed."""
     dev = cum.device
-    g = g0 + torch.arange(HBUF, dtype=torch.int32, device=dev)
-    valid = g < g1
+    lanes = torch.arange(HBUF, dtype=torch.int32, device=dev)
+    # from the lanes, not from g: g0 + lane wraps past 2^31 - 1 on rows
+    # past g1 of a program that ends near there
+    valid = lanes < g1 - g0
+    g = g0 + lanes
     gs = torch.where(valid, g, 0)
     sidx = torch.searchsorted(cum, gs, right=True).to(torch.int32)
     sidx = torch.clamp(sidx, max=cum.shape[0] - 1)

@@ -6,20 +6,42 @@ Every wrapper (K1-K5, S1-S4) counts a launch with count_launch, under one
 lock: the farm's worker threads and their finishers launch at once, and a
 bare `fn.launches += 1` loses increments between threads. The count lives
 on the wrapper (`fn.launches`, and K3's `launches_by_T`), where callers
-read it and set it to 0."""
+read it and set it to 0.
+
+A launch that a thread records into a CUDA graph inside recording() is
+not counted there: recording() returns it, and whoever replays the graph
+counts it with count_launch at every replay (pipeline/program.py)."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
 _LOCK = threading.Lock()
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """While open on this thread, count_launch appends (fn, T) to the
+    list it yields instead of counting: the launches a graph capture
+    records."""
+    _RECORDING.launches = launches = []
+    try:
+        yield launches
+    finally:
+        _RECORDING.launches = None
 
 
 def count_launch(fn, T=None):
     """Add one to `fn.launches` (and to `fn.launches_by_T[T]` when T is
     given); the wrappers call it where they launch their kernel."""
+    recorded = getattr(_RECORDING, "launches", None)
+    if recorded is not None:
+        recorded.append((fn, T))
+        return
     with _LOCK:
         fn.launches += 1
         if T is not None:

@@ -56,19 +56,21 @@ def chunk_kmers(query_pad, chunk_start: int, chunk_len: int, *, CHUNK: int,
     return kmers, qpos, valid
 
 
-def bucket_ranges(index_table, buckets):
-    """(starts, ends) of buckets in a table of inclusive bucket ends."""
-    ends = index_table[buckets.long()]
-    # buckets - 1 is -1 at bucket 0, where the where() picks 0: clamp it,
-    # since torch indexing would wrap it to the last bucket
-    starts = torch.where(buckets > 0,
-                         index_table[(buckets - 1).clamp(min=0).long()], 0)
+def bucket_ranges(index_table, buckets, starts=None):
+    """(starts, ends) of buckets in a table of inclusive bucket ends,
+    looked up with the buckets' own integer type (no int64 copy of them);
+    starts: a tensor that receives the starts, or None for a new one."""
+    ends = torch.index_select(index_table, 0, buckets)
+    # buckets - 1 is -1 at bucket 0, whose start is 0
+    starts = torch.index_select(index_table, 0, (buckets - 1).clamp_(min=0),
+                                out=starts)
+    starts.masked_fill_(buckets == 0, 0)
     return starts, ends
 
 
 def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
                 CHUNK: int, seed_size: int, shape_pos: tuple,
-                transition: bool, pad: int):
+                transition: bool, pad: int, out=None):
     """The seeds of chunk [chunk_start, chunk_start + chunk_len).
 
     query_pad: 1-D uint8 padded query with `pad` bytes before position 0,
@@ -77,12 +79,19 @@ def chunk_seeds(query_pad, index_table, chunk_start: int, chunk_len: int, *,
     starts, cum, stats), all (S,) with S = CHUNK * (1 + k) with transitions
     (CHUNK without): cum is the inclusive int32 cumsum of the per-seed hit
     counts (0 for invalid slots); stats is (2,) int64: the number of valid
-    seeds and of hits."""
+    seeds and of hits. out: (qpos, starts, cum), (S,) int32 tensors on the
+    device that receive those three (the native route's program buffers,
+    which a CUDA graph reads), or None for new ones."""
     kmers, qpos, valid = chunk_kmers(
         query_pad, chunk_start, chunk_len, CHUNK=CHUNK, seed_size=seed_size,
         shape_pos=shape_pos, transition=transition, pad=pad)
-    starts, ends = bucket_ranges(index_table, kmers)
-    hit_counts = torch.where(valid, ends - starts, 0)
-    cum = torch.cumsum(hit_counts, 0, dtype=torch.int32)
+    if out is None:
+        out = [torch.empty_like(kmers) for _ in range(3)]
+    out_qpos, starts, cum = out
+    out_qpos.copy_(qpos)
+    del qpos
+    _, hit_counts = bucket_ranges(index_table, kmers, starts)   # the ends
+    hit_counts.sub_(starts).masked_fill_(~valid, 0)
     stats = torch.stack([valid.sum(), hit_counts.sum(dtype=torch.int64)])
-    return kmers, qpos, valid, starts.to(torch.int32), cum, stats
+    torch.cumsum(hit_counts, 0, dtype=torch.int32, out=cum)
+    return kmers, out_qpos, valid, starts, cum, stats

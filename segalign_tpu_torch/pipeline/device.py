@@ -8,14 +8,19 @@ chain of lower bounds over the seeds' hit counts that cuts the logical hit
 batches, _plan_limits) and expand each range of at most HBUF hits on the
 device (ops/hits.py expand_hits); they differ in the extension engine:
 
-  - native (the default): each program of at most HBUF hits is extended by
-    the fused engine (ops/extend_fused.py: K1 on the sequences, then K4s,
-    every survivor walked to its end in one launch), cut to its candidate
-    rows (_program_candidates), and a chunk-strand's candidates are compacted
-    and deduped on the device (_pack_compact); the host recomputes the
-    entropy counts of the candidates that need them. The host seeder
-    (native.ChunkSeeder, native/seeder.cpp) is not on this route: it is
-    the check that the tests and chip_smoke.py hold the device's hits to.
+  - native (the default): each program of HBUF hits is one device program
+    (pipeline/program.py extend_program: the hits, the fused engine of
+    ops/extend_fused.py, K1 on the sequences, then K4s, every survivor
+    walked to its end in one launch, and its candidates appended to the
+    chunk-strand's buffer on the device), on the card one replay of a CUDA
+    graph captured once; a chunk-strand's candidates are deduped and
+    compacted on the device (pack_candidates, on the card a graph of its
+    own) into a block and a count that the finisher fetches: nothing
+    between the plan and that fetch waits for the card. The host
+    recomputes the entropy counts of the candidates that need them. The
+    host seeder (native.ChunkSeeder, native/seeder.cpp) is not on this
+    route: it is the check that the tests and chip_smoke.py hold the
+    device's hits to.
   - device seeding (device_seeding=True, or SEGALIGN_DEVICE_SEEDING=1 when
     the caller passes None, read on each construction as the JAX aligner
     reads it; the name is the JAX package's): each range is extended by
@@ -31,33 +36,40 @@ HSPs are remapped onto the forward strand, and the dedup is dedup_rm.
 
 What the JAX aligner carries for the TPU and its remote compiles has no
 counterpart, since none of it changes output: power-of-two program and
-buffer classes, dummy programs, the fixed compaction width and its
-escalation, transient-compile retries and the compile lock. Every device
-step here runs eagerly on `device`, a CPU device in tests and a CUDA
-device on the card.
+buffer classes, dummy programs, transient-compile retries and the compile
+lock. Its fixed compaction width has one: the native route's candidate
+buffers (CAND_ROWS, KEPT_ROWS), which spare the card a sync a program; a
+chunk-strand whose candidates do not fit is extended again into larger
+ones (the JAX package re-packs instead: it keeps every program's fields,
+which the port lets go of). Every other device step runs eagerly on
+`device`, a CPU device in tests and a CUDA device on the card.
 
-Stage times, as in the JAX aligner: every chunk adds the host time of its
-stages to STAGE_TOTALS (bench.py's serial breakdown reads it; cleared by
-reset_stage_totals). Both routes' stages start with seeds (chunk_seeds
-and its counts' fetch) and plan (_batch_ends). The native route's go on
-with extend (expand_hits, the RM window and extend_fields_program), pack
-(_pack_compact), d2h (the candidates' fetch) and host_dedup
+Stage times, as in the JAX aligner: every chunk adds the host time of
+its stages to STAGE_TOTALS (bench.py's serial breakdown reads it;
+cleared by reset_stage_totals). Both routes' stages start with seeds
+(chunk_seeds and its counts' fetch) and plan (_batch_ends). The native
+route's go on with extend (a program each: its hit range written to the
+device and the program run, on the card a graph replay; the first also
+sets the chunk-strand's window and batch ends), pack (pack_candidates),
+d2h (the count's and the candidates' fetch; a chunk-strand extended
+again adds its stages to seeds, plan, extend and pack) and host_dedup
 (_split_and_finalize); the device route's with extend
-(_process_hit_range, whose fetch is part of it), nrange (1e-3 a hit range:
-a count) and host_dedup. The JAX stage recompact has no counterpart (it
-re-packs the fixed compaction width, which the port does not have), nor
-has the device route's separate d2h. Kernels run asynchronously, so a
-device stage's time is its dispatch time unless SEGALIGN_SYNC=1, which
-synchronizes the device before each device stage's clock stops.
-SEGALIGN_TIMING=1 prints each chunk's stages to stderr. Both are read on
-every call. The stages add up to the wall in the serial form of
-map_chunks only (SEGALIGN_OVERLAP=0): otherwise d2h and host_dedup run on
-the finisher thread while the dispatch thread's stages run.
+(_process_hit_range, whose fetch is part of it), nrange (1e-3 a hit
+range: a count) and host_dedup. The JAX stage recompact has no
+counterpart (the port extends again instead), nor has the device route's
+separate d2h. Kernels run asynchronously, so a device stage's time is
+its dispatch time unless SEGALIGN_SYNC=1, which synchronizes the device
+before each device stage's clock stops. SEGALIGN_TIMING=1 prints each
+chunk's stages to stderr. Both are read on every call. The stages add up
+to the wall in the serial form of map_chunks only (SEGALIGN_OVERLAP=0):
+otherwise d2h and host_dedup run on the finisher thread while the
+dispatch thread's stages run.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import threading
@@ -70,15 +82,17 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..index.seed_table import build_seed_table
 from ..native import check_chunk_hits, entropy_counts_host, get_lib
 from ..ops.dedup import dedup_pairwise, dedup_rm
 from ..ops.extend3 import extend_hits_windowed
-from ..ops.extend_fused import extend_fields_program
 from ..ops.finalize import finalize_candidates
 from ..ops.hits import compact_mask, expand_hits
 from ..ops.padding import pad_sequence
 from ..ops.seeding import chunk_seeds
+from .program import (DUMP, END, FIELDS, NO_WINDOW, Buffers, ProgramGraph,
+                      extend_program, pack_candidates, program_hits)
 
 DEFAULT_MAX_HITS = 4194304 * 16  # reference: MAX_HITS_PER_GB * gpu_mem_gb
 # extension window widths: the first window of every hit (the default of
@@ -87,6 +101,15 @@ DEFAULT_MAX_HITS = 4194304 * 16  # reference: MAX_HITS_PER_GB * gpu_mem_gb
 FIRST_W = 512
 CONT_W = 2048
 PAD = max(FIRST_W, CONT_W)  # sequence padding that covers every window
+# the native route's candidate buffers at first, in rows: a chunk-strand's
+# candidates less each program's duplicates, the pack's kept rows, and its
+# logical batches (on the benchmark's 4 Mbp pair, whose densest
+# chunk-strand has hundreds of thousands of candidates, none passes
+# them); they grow to twice the most a chunk-strand has needed, and a
+# chunk-strand that passes one is extended again
+CAND_ROWS = 1 << 15
+KEPT_ROWS = 1 << 12
+BATCHES = 64
 
 # Cumulative host time of each stage over every chunk in this process, in
 # seconds (module docstring); map_chunks' dispatch and finisher threads
@@ -145,6 +168,9 @@ class ChunkResult:
     # logical hit batches (the reference's max_hits batching) the chunk's
     # hits were cut into; 0 without hits
     num_batches: int = 0
+    # the times its candidates passed the native route's buffers and it
+    # was extended again
+    reextended: int = 0
 
 
 @dataclass
@@ -156,12 +182,18 @@ class PendingChunk:
     rev: bool
     num_seeds: int
     num_hits: int
-    # (n, 9) int32 on the device: orig hit index, rs, qs, length, total,
-    # counts[4], in ascending hit order; None when the chunk had no hits
+    # pack_candidates' block, (kept_rows + DUMP, 9) int32 on the device: orig
+    # hit index, rs, qs, length, total, counts[4] of the kept rows first,
+    # in ascending hit order, and its count (2,) int64: kept rows and the
+    # rows the programs appended; None when the chunk had no hits
     out: Optional[torch.Tensor]
+    counts: Optional[torch.Tensor]
     # logical hit-batch boundaries (the reference's max_hits batching) as
     # end offsets into the hit stream
     seg_ends: np.ndarray
+    window: Optional[Tuple[int, int]] = None
+    # the candidate buffer's rows when the programs ran
+    cand_rows: int = 0
 
 
 @dataclass
@@ -183,63 +215,6 @@ class SeededChunk:
     seg_ends: np.ndarray
     window: Optional[Tuple[int, int]]
     tm: _StageTimer
-
-
-def _program_candidates(fin: dict, orig: torch.Tensor) -> dict:
-    """One extension program's candidate rows only, as soon as the program
-    is extended: orig (each row's index in the chunk-strand's hit stream,
-    from `orig`), rs, qs, length, total and counts, with candidate all
-    true. The per-hit tensors go, so a chunk-strand's device memory grows
-    with its candidates, not with its hits."""
-    sel = torch.nonzero(fin["candidate"]).squeeze(1)
-    out = {k: fin[k][sel] for k in ("candidate", "rs", "qs", "length",
-                                     "total", "counts")}
-    out["orig"] = orig[sel]
-    return out
-
-
-def _pack_compact(fins, seg_ends: torch.Tensor) -> torch.Tensor:
-    """Candidates of all of a chunk-strand's programs as one (n, 9) int32
-    block in ascending hit order, with exact duplicates removed.
-
-    fins: the programs' fields in ascending hit order, each cut to its
-    candidate rows by _program_candidates (the JAX package packs every
-    row of every program; that keeps the same rows in the same order:
-    the programs' rows stay in ascending orig, a non-candidate only ever
-    sorts after every candidate, and the dedup compares live neighbours
-    only, so the kept rows and their order do not depend on whether the
-    non-candidates are there).
-
-    A candidate is dropped when another candidate of the same logical hit
-    batch has the same extent (rs, qs, length). Identical extents have
-    identical totals and counts, so the host's entropy finalize and
-    containment dedup give the same HSPs with one copy as with many (see
-    segalign_tpu/pipeline/device.py _pack_compact). Candidates are sorted
-    stably on the int64 key (rs << 31) | qs, non-candidates after them all,
-    and neighbours equal on the key, the length and the batch are
-    duplicates. rs and qs are int32 positions, so the key holds any block;
-    the JAX key, rs plus 2^30 for non-candidates, drops every candidate at
-    rs >= 2^30, which the repeat masker's block (1 Gbp and its neighbours'
-    overlap, a fifth of the genome) passes on any genome over 1.1 Gbp."""
-    cat = lambda k: torch.cat([f[k] for f in fins])
-    cand, orig = cat("candidate"), cat("orig")
-    rs, qs, ln = cat("rs"), cat("qs"), cat("length")
-    seg = torch.searchsorted(seg_ends, orig, right=True)
-    key, order = torch.sort(
-        torch.where(cand, (rs.long() << 31) | qs.long(),
-                    torch.iinfo(torch.int64).max), stable=True)
-    s_ln, s_seg = ln[order], seg[order]
-    live = cand[order]
-    dup = ((key[1:] == key[:-1]) & (s_ln[1:] == s_ln[:-1])
-           & (s_seg[1:] == s_seg[:-1]) & live[1:])
-    keep = live.clone()
-    keep[1:] &= ~dup
-    cand = torch.zeros_like(cand)
-    cand[order] = keep
-    sel = torch.nonzero(cand).squeeze(1)
-    return torch.cat([orig[sel, None].to(torch.int32), rs[sel, None],
-                      qs[sel, None], ln[sel, None], cat("total")[sel, None],
-                      cat("counts")[sel]], dim=1)
 
 
 def _plan_limits(cum: torch.Tensor, num_hits: int, max_hits: int,
@@ -386,6 +361,16 @@ class DeviceAligner:
         # depend on it)
         self.window = window
         self.device = torch.device(device)
+        # the native route's programs (_program): their buffers, made at
+        # the first chunk-strand, and on the card a graph per query strand,
+        # its capture stream and memory pool; the lock keeps one
+        # chunk-strand at a time on them (the finisher's extend-again
+        # against the next dispatch)
+        self._buf: Optional[Buffers] = None
+        self._cand_rows, self._kept_rows = CAND_ROWS, KEPT_ROWS
+        self._graphs: dict = {}
+        self._stream = self._pool = None
+        self._lock = threading.Lock()
         self.sub = torch.as_tensor(
             np.asarray(sub_mat, np.int32).reshape(-1)).to(self.device)
         # the host code of both routes (seed table, dedup, entropy counts)
@@ -406,6 +391,7 @@ class DeviceAligner:
         index and position tables on the device, and the host's copies."""
         self.ref_pad = self.index_table = self.pos_table = None
         self._ref_host = self._host_tables = None
+        self._drop_graphs()   # they read the old block
 
     def set_ref(self, ref_codes: np.ndarray, tables=None):
         """tables: an optional precomputed (index_table, pos_table). The
@@ -435,6 +421,7 @@ class DeviceAligner:
         self.q_rc = self._upload(rc_codes, right)
         self._q_fw_host = np.ascontiguousarray(fw_codes, np.uint8)
         self._q_rc_host = np.ascontiguousarray(rc_codes, np.uint8)
+        self._drop_graphs()   # they read the old query
 
     def map_chunks(self, work, depth: int = 4, on_result=None
                    ) -> List[ChunkResult]:
@@ -512,24 +499,28 @@ class DeviceAligner:
                        window: Optional[Tuple[int, int]] = None
                        ) -> PendingChunk:
         """Seeding, hit expansion, extension and candidate compaction of one
-        chunk-strand on the device (native route): _seed_chunk, then
-        _extend_seeded."""
-        return self._extend_seeded(
-            self._seed_chunk(chunk_start, chunk_end, rev, window))
+        chunk-strand on the device (native route): _seed_chunk into the
+        programs' buffers, then _extend_seeded."""
+        with self._lock:
+            return self._extend_seeded(self._seed_chunk(
+                chunk_start, chunk_end, rev, window, into=self._buffers()))
 
     def _seed_chunk(self, chunk_start: int, chunk_end: int, rev: bool,
-                    window: Optional[Tuple[int, int]] = None
-                    ) -> SeededChunk:
+                    window: Optional[Tuple[int, int]] = None,
+                    into: Optional[Buffers] = None) -> SeededChunk:
         """Both routes' first half of a chunk-strand: its seeds and their
-        hit counts on the device (chunk_seeds), the hit ceiling, and the
-        logical batch ends over its whole hit stream (_batch_ends)."""
+        hit counts on the device (chunk_seeds; into the seed slots of
+        `into` when given), the hit ceiling, and the logical batch ends over
+        its whole hit stream (_batch_ends)."""
         tm = _StageTimer()
         t0 = time.time()
         q = self.q_rc if rev else self.q_fw
         _, qpos, _, starts, cum, stats = chunk_seeds(
             q, self.index_table, chunk_start, chunk_end - chunk_start,
             CHUNK=self.chunk_size, seed_size=self.seed_size,
-            shape_pos=self.shape_pos, transition=self.transition, pad=PAD)
+            shape_pos=self.shape_pos, transition=self.transition, pad=PAD,
+            out=None if into is None else (into.qpos, into.starts,
+                                            into.cum))
         num_seeds, num_hits = stats.tolist()   # no seed, no hit
         if num_seeds:
             check_chunk_hits(num_hits, chunk_start, int32_cum=True)
@@ -546,39 +537,113 @@ class DeviceAligner:
                            cum, starts, qpos, seg_ends, window, tm)
 
     def _program_hits(self, s: SeededChunk, g0: int):
-        """The hits that the extension program at g0 of a seeded
-        chunk-strand extends, on the device: (ref_loc, query_loc, orig),
-        each row's anchors and its index in the chunk-strand's hit stream,
-        for hits [g0, g0 + HBUF) in order; with an RM window only those
-        whose reference position lies in it."""
-        g1 = min(g0 + self.HBUF, s.num_hits)
-        ref_loc, query_loc, _ = expand_hits(
-            s.cum, s.starts, s.qpos, self.pos_table, g0, g1, self.seed_size,
-            HBUF=g1 - g0)
-        orig = torch.arange(g0, g1, dtype=torch.int32, device=self.device)
-        if s.window is None:
-            return ref_loc, query_loc, orig
-        keep = torch.nonzero((ref_loc >= s.window[0])
-                             & (ref_loc <= s.window[1])).squeeze(1)
+        """The hits that the program at g0 of a seeded chunk-strand extends,
+        on the device: (ref_loc, query_loc, orig), each row's anchors and
+        its index in the chunk-strand's hit stream, for hits [g0, g0 +
+        HBUF) in order; with an RM window only those whose reference
+        position lies in it. The rows program_hits makes valid, cut to
+        them: the check of the card's seeding (the route masks, and cuts
+        nothing)."""
+        lo, hi = s.window or NO_WINDOW
+        ref_loc, query_loc, orig, valid = program_hits(
+            self.pos_table, s.cum, s.starts, s.qpos, g0,
+            min(g0 + self.HBUF, s.num_hits), lo, hi, HBUF=self.HBUF,
+            seed_size=self.seed_size)
+        keep = torch.nonzero(valid).squeeze(1)
         return ref_loc[keep], query_loc[keep], orig[keep]
 
+    def _buffers(self) -> Buffers:
+        """The programs' buffers, made at the first chunk-strand, with a
+        candidate buffer of self._cand_rows rows; a new one drops the
+        graphs, which read the old."""
+        if self._buf is None:
+            nvar = 1 + self.kmer_size if self.transition else 1
+            self._buf = Buffers(self.chunk_size * nvar, BATCHES,
+                                self._cand_rows, self.device)
+        elif self._buf.cand_rows < self._cand_rows:
+            self._buf.rows = torch.zeros(
+                (self._cand_rows + DUMP, FIELDS), dtype=torch.int32,
+                device=self.device)
+            self._drop_graphs()
+        return self._buf
+
+    def _drop_graphs(self):
+        """Let go of the programs' graphs and of their memory pool: a pool
+        whose graphs have all gone takes no new capture."""
+        self._graphs = {}
+        self._pool = None
+
+    def _program_fn(self, rev: bool, rows: Optional[int] = None):
+        """extend_program on the buffers for a chunk-strand of strand
+        `rev`, over `rows` rows (HBUF when None): the function a graph is
+        captured from (which the checks run eagerly beside the replays),
+        and on the CPU the native route's program."""
+        return functools.partial(
+            extend_program, self.ref_pad, self.q_rc if rev else self.q_fw,
+            self.pos_table, self.sub, self._buf, HBUF=rows or self.HBUF,
+            seed_size=self.seed_size, xdrop=self.xdrop,
+            hspthresh=self.hspthresh, ref_len=self.ref_len,
+            query_len=self.q_len, pad=PAD, W=self.window, W_CONT=CONT_W)
+
+    def _program(self, rev: bool):
+        """What runs one program of a chunk-strand of strand `rev`, called
+        with the program's hit count: on the card the replay of its CUDA
+        graph of HBUF rows, captured at the first program after the
+        buffers, the reference block or the query changed (a capture that
+        fails raises); on the CPU _program_fn over the program's hits
+        only, since there the kernels' plain versions pay for every row,
+        and the rows past a program's hits are never candidates."""
+        if self.device.type != "cuda":
+            return lambda rows: self._program_fn(rev, rows)()
+        graph = self._graphs.get(rev)
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[rev] = self._capture(self._program_fn(rev),
+                                                      self._pool)
+        return lambda rows: graph.replay()
+
+    def _pack(self):
+        """pack_candidates on the buffers: on the CPU the function; on the
+        card the replay of its graph (a memory pool of its own; captured
+        again when the kept rows grow) and copies of its block and count,
+        which the next chunk-strand's replay overwrites."""
+        pack = functools.partial(pack_candidates, self._buf, self._kept_rows)
+        if self.device.type != "cuda":
+            return pack()
+        graph = self._graphs.get("pack")
+        if graph is None or \
+                graph.outputs[0].shape[0] != self._kept_rows + DUMP:
+            graph = self._graphs["pack"] = self._capture(pack, None)
+        return tuple(t.clone() for t in graph.replay())
+
+    def _capture(self, run, pool) -> ProgramGraph:
+        """`run` captured on the aligner's capture stream into `pool`."""
+        _build.kernels()   # the kernels' library is loaded outside
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with on_device(self.device):
+            return ProgramGraph(run, self._stream, pool)
+
     def _extend_seeded(self, s: SeededChunk) -> PendingChunk:
-        """The native route's second half of a chunk-strand: the extension
-        programs over its hits and the compaction of their candidates, on
-        the calling thread's device."""
-        fins = self._dispatch_rows(s)
-        if not fins:
+        """The native route's second half of a chunk-strand seeded into the
+        programs' buffers: its programs (_dispatch_rows) and the pack of
+        their candidates, on the calling thread's device; nothing here
+        waits for the card."""
+        if s.num_hits == 0:
             return PendingChunk(s.chunk_start, s.chunk_end, s.rev,
-                                s.num_seeds, s.num_hits, None, s.seg_ends)
+                                s.num_seeds, 0, None, None, s.seg_ends,
+                                s.window)
+        self._dispatch_rows(s)
         t0 = time.time()
-        out = _pack_compact(fins, torch.from_numpy(s.seg_ends).to(
-            self.device))
+        out, counts = self._pack()
         self._sync()
         s.tm.add("pack", time.time() - t0)
         s.tm.dump(f"dispatch {s.chunk_start}:{s.chunk_end} rev={s.rev} "
                   f"hits={s.num_hits}")
         return PendingChunk(s.chunk_start, s.chunk_end, s.rev, s.num_seeds,
-                            s.num_hits, out, s.seg_ends)
+                            s.num_hits, out, counts, s.seg_ends, s.window,
+                            self._buf.cand_rows)
 
     def _sync(self):
         """Under SEGALIGN_SYNC=1, wait for the device's work (CUDA only)."""
@@ -586,46 +651,87 @@ class DeviceAligner:
                 os.environ.get("SEGALIGN_SYNC", "") == "1":
             torch.cuda.synchronize(self.device)
 
-    def _dispatch_rows(self, s: SeededChunk) -> list:
-        """One extension program per span of at most HBUF hits of a seeded
-        chunk-strand (_program_hits); each program's candidate rows
-        (_program_candidates), in hit order. A program left with no hit
-        in the RM window is skipped."""
-        q_pad = self.q_rc if s.rev else self.q_fw
-        fins = []
+    def _dispatch_rows(self, s: SeededChunk) -> None:
+        """The programs of a chunk-strand seeded into the buffers, one per
+        span of HBUF hits (_program), their candidates appended to the
+        buffers' candidate rows: the chunk-strand's window and batch ends
+        (its batches grow the buffer's room for them when they pass it)
+        and a zero count written to the device, then each program's hit
+        range and the program. Nothing here reads a device value."""
+        buf = self._buf
+        t0 = time.time()
+        if len(s.seg_ends) > buf.seg_ends.shape[0]:
+            buf.seg_ends = torch.full(
+                (1 << (len(s.seg_ends) - 1).bit_length(),), END,
+                dtype=torch.int64, device=self.device)
+            self._drop_graphs()
+        ends = np.full(buf.seg_ends.shape[0], END, np.int64)
+        ends[:len(s.seg_ends)] = s.seg_ends
+        ends = torch.from_numpy(ends)
+        if self.device.type == "cuda":
+            ends = ends.pin_memory()   # a copy that does not wait
+        buf.seg_ends.copy_(ends, non_blocking=True)
+        lo, hi = s.window or NO_WINDOW
+        buf.lo.fill_(lo)
+        buf.hi.fill_(hi)
+        buf.n.zero_()
+        run = self._program(s.rev)
         for g0 in range(0, s.num_hits, self.HBUF):
-            t0 = time.time()
-            ref_loc, query_loc, orig = self._program_hits(s, g0)
-            m = orig.shape[0]
-            if m:
-                fin = extend_fields_program(
-                    self.ref_pad, q_pad, ref_loc, query_loc, m, self.sub,
-                    self.xdrop, self.hspthresh, self.ref_len, self.q_len,
-                    pad=PAD, W=self.window, W_CONT=CONT_W,
-                    with_counts=False)
-                fins.append(_program_candidates(fin, orig))
-                del fin   # the per-hit fields go before the next program's
+            g1 = min(g0 + self.HBUF, s.num_hits)
+            buf.g0.fill_(g0)
+            buf.g1.fill_(g1)
+            run(g1 - g0)
             self._sync()
             s.tm.add("extend", time.time() - t0)
-        return fins
+            t0 = time.time()
+
+    def _grow(self, n: int, kept: int, cand_rows: int):
+        """The buffers' rule (the finisher's, which alone sees the counts):
+        room for twice the most rows a chunk-strand has appended and kept
+        so far, which the next dispatch takes (_buffers). Of a pack whose
+        candidates passed its buffer the kept rows are scaled up by the
+        share of them it saw."""
+        if n > cand_rows:
+            kept = -(-kept * n // max(cand_rows, 1))
+        self._cand_rows = max(self._cand_rows, 2 * n)
+        self._kept_rows = max(self._kept_rows, 2 * kept)
+
+    def _extend_again(self, p: PendingChunk, n: int, kept: int
+                      ) -> PendingChunk:
+        """A dispatched chunk-strand whose n candidate rows or `kept` kept
+        rows passed the buffers, seeded and extended again once the
+        buffers have grown (_grow; the finisher's, which waits for the
+        dispatch thread's chunk-strand in flight)."""
+        self._grow(n, kept, p.cand_rows)
+        with self._lock:
+            return self._extend_seeded(self._seed_chunk(
+                p.chunk_start, p.chunk_end, p.rev, p.window,
+                into=self._buffers()))
 
     def finish_chunk(self, p: PendingChunk) -> ChunkResult:
         """Fetch a dispatched chunk's candidates; split them into logical
         batches; finalize entropy and dedup on the host."""
         nb = len(p.seg_ends)
-        if p.out is None or p.out.shape[0] == 0:
-            return ChunkResult(np.zeros((0, 4), np.int64), p.num_hits,
-                               p.num_seeds, nb)
+        empty = np.zeros((0, 4), np.int64)
+        if p.out is None:
+            return ChunkResult(empty, p.num_hits, p.num_seeds, nb)
         tm = _StageTimer()
         t0 = time.time()
-        allrows = p.out.cpu().numpy().astype(np.int64)
+        kept, n = p.counts.tolist()
+        again = 0
+        while n > p.cand_rows or kept > p.out.shape[0] - DUMP:
+            p = self._extend_again(p, n, kept)
+            kept, n = p.counts.tolist()
+            again += 1
+        self._grow(n, kept, p.cand_rows)
+        allrows = p.out[:kept].cpu().numpy().astype(np.int64)
         tm.add("d2h", time.time() - t0)
         t0 = time.time()
-        hsps = self._split_and_finalize(allrows, p)
+        hsps = self._split_and_finalize(allrows, p) if kept else empty
         tm.add("host_dedup", time.time() - t0)
         tm.dump(f"finish {p.chunk_start}:{p.chunk_end} rev={p.rev} "
-                f"cand={len(allrows)}")
-        return ChunkResult(hsps, p.num_hits, p.num_seeds, nb)
+                f"cand={kept} again={again}")
+        return ChunkResult(hsps, p.num_hits, p.num_seeds, nb, again)
 
     def _split_and_finalize(self, allrows: np.ndarray,
                             p: PendingChunk) -> np.ndarray:

@@ -53,6 +53,9 @@ class PipelineStats:
     split_chunks: int = 0
     min_chunk_hits: Optional[int] = None
     max_chunk_hits: Optional[int] = None
+    # the native route's chunk-strands extended again, their candidates
+    # past the buffers (a chunk-strand extended twice counts twice)
+    reextended: int = 0
 
     def add_chunk(self, r) -> None:
         """Count one chunk-strand's ChunkResult."""
@@ -65,6 +68,7 @@ class PipelineStats:
         self.min_chunk_hits = (r.num_hits if self.min_chunk_hits is None
                                else min(self.min_chunk_hits, r.num_hits))
         self.max_chunk_hits = max(self.max_chunk_hits or 0, r.num_hits)
+        self.reextended += r.reextended
 
     def log(self, seconds: float) -> None:
         """The `stats` event: the counts, the ungapped stage's seconds, the
@@ -77,6 +81,7 @@ class PipelineStats:
                   split_chunks=self.split_chunks,
                   min_chunk_hits=self.min_chunk_hits,
                   max_chunk_hits=self.max_chunk_hits,
+                  reextended=self.reextended,
                   launches=launch_counts(),
                   peak_device_bytes=peak_device_bytes())
 

@@ -1,9 +1,10 @@
 """The port's measurement scripts: the counterparts of scripts/
 exp_gather_variants.py, probe_env.py, probe_extension.py,
 measure_scaling.py (with _scaling_worker.py) and
-measure_sharded_vs_replicated.py, and five of the port's own (the slices'
+measure_sharded_vs_replicated.py, and six of the port's own (the slices'
 walls and kernel time; the walls of the paths beside the benchmark's
-cells, a tree against another; K1 on the sequences alone and its build
+cells, a tree against another; the native route's programs on cell 1's
+pair, a tree against another; K1 on the sequences alone and its build
 variants; K4 on the sequences beside the survivor steps it replaced, on a
 pass's programs; the pair and both CLIs on several cards):
 
@@ -12,6 +13,7 @@ pass's programs; the pair and both CLIs on several cards):
     python -m segalign_tpu_torch.scripts.probe_extension [probe ...]
     python -m segalign_tpu_torch.scripts.slice_walls [runs]
     python -m segalign_tpu_torch.scripts.path_walls [label [PATH,...]]
+    python -m segalign_tpu_torch.scripts.program_walls [label]
     python -m segalign_tpu_torch.scripts.k1s_rows [label] [NAME=FLAGS ...]
     python -m segalign_tpu_torch.scripts.k4s_rows [label]
     python -m segalign_tpu_torch.scripts.measure_scaling [--device ...]
@@ -21,7 +23,8 @@ pass's programs; the pair and both CLIs on several cards):
 Each measures the CUDA device: without one it exits at once with a
 message, and no probe runs on the CPU in its place. Only the last three
 run on the CPU as well, when `--device cpu` asks for it by name (their
-tests' small runs, whose times are the CPU's). No script catches an
+tests' small runs, whose times are the CPU's), and program_walls'
+`--summarize`, which reads the cells' saved outputs. No script catches an
 exception. Every run prints the card's name and power limit
 first, so that each time it prints stands beside them. Importing these
 modules touches no device.

@@ -3,8 +3,8 @@
 Both CLIs over several target and query blocks, with a --max_hits that
 cuts most chunk-strands' hits into several logical batches (the
 reference's max_hits batching, on which the dedup depends), on every
-route, against the JAX CLIs byte for byte; the per-program candidate
-compaction against the JAX package's _pack_compact; an aligner letting go
+route, against the JAX CLIs byte for byte; the programs' candidate
+buffer and pack against the JAX package's _pack_compact; an aligner letting go
 of its old block before it takes the next; and the launch count under
 threads."""
 
@@ -199,15 +199,44 @@ def _random_fins(rng, n_prog=5, B=300):
     return fins
 
 
+def first_of_runs_plain(cand, rs, qs, ln, seg, key=None):
+    """pipeline/program.py first_of_runs in numpy, rows in order: every
+    candidate but one whose candidate before it in the stable order of
+    `key` (the JAX _pack_compact's (rs, qs) when None) is equal on rs,
+    qs, the length and the batch."""
+    if key is None:
+        key = (rs.astype(np.int64) << 31) | qs
+    order = np.argsort(np.where(cand, key, np.iinfo(np.int64).max),
+                       kind="stable")
+    keep = []
+    for j, i in enumerate(order):
+        p = order[j - 1] if j else None
+        if cand[i] and not (p is not None and cand[p] and (
+                rs[p], qs[p], ln[p], seg[p]) == (rs[i], qs[i], ln[i],
+                                                  seg[i])):
+            keep.append(i)
+    return np.sort(np.array(keep, np.int64))
+
+
+def buffers_for(seg_ends, cand_rows):
+    """pipeline/program.py Buffers on the CPU with these batch ends and no
+    seed slots, for appending programs' fields by hand."""
+    from segalign_tpu_torch.pipeline.program import Buffers
+    buf = Buffers(1, 8, cand_rows, "cpu")
+    buf.seg_ends[:len(seg_ends)] = torch.from_numpy(seg_ends)
+    return buf
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_program_candidates_pack_equals_jax_pack(seed):
-    """Cutting each program to its candidates before the pack keeps the
-    JAX _pack_compact(dedup_exact=True)'s rows in its order, with batch
-    ends inside programs and on a program boundary."""
+    """Each program's candidates less their duplicates appended to the
+    chunk-strand's buffer, then the pack: the JAX
+    _pack_compact(dedup_exact=True)'s rows in its order, with batch ends
+    inside programs and on a program boundary."""
     import jax.numpy as jnp
     from segalign_tpu.pipeline.device import _pack_compact as jax_pack
-    from segalign_tpu_torch.pipeline.device import (_pack_compact,
-                                                    _program_candidates)
+    from segalign_tpu_torch.pipeline.program import (append_candidates,
+                                                     pack_candidates)
     rng = np.random.default_rng(seed)
     B = 300
     fins = _random_fins(rng, B=B)
@@ -219,12 +248,21 @@ def test_program_candidates_pack_equals_jax_pack(seed):
     total, want = jax_pack(jfins, jnp.asarray(seg_ends), TBUF=n,
                            dedup_exact=True)
     want = np.asarray(want)[:int(total)]
-    cands = [_program_candidates(
-        {k: torch.from_numpy(v) for k, v in f.items()},
-        torch.arange(i * B, (i + 1) * B, dtype=torch.int32))
-        for i, f in enumerate(fins)]
-    assert all(bool(c["candidate"].all()) for c in cands)
-    got = _pack_compact(cands, torch.from_numpy(seg_ends)).numpy()
+    buf = buffers_for(seg_ends, n)
+    for i, f in enumerate(fins):
+        append_candidates(buf, {k: torch.from_numpy(v)
+                                for k, v in f.items()},
+                          torch.arange(i * B, (i + 1) * B,
+                                       dtype=torch.int32))
+    # the buffer holds each program's candidates only, in hit order
+    rows = buf.rows[:int(buf.n)].numpy()
+    orig = rows[:, 0]
+    assert (np.diff(orig) > 0).all()
+    assert all(fins[o // B]["candidate"][o % B] for o in orig)
+    out, counts = pack_candidates(buf, n)
+    kept, appended = counts.tolist()
+    assert appended == len(rows)
+    got = out[:kept].numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < len(got) < sum(f["candidate"].sum() for f in fins)
 
@@ -242,11 +280,13 @@ def _small_aligner(**kw):
 
 
 def test_dispatch_rows_returns_candidate_rows_only():
-    """Each program's output holds its candidates only, at their hit
-    indices, with the fields extend_fields_program gives them."""
+    """The programs' buffer holds their candidates only, at their hit
+    indices, with the fields extend_fields_program gives them, less each
+    program's duplicates (first_of_runs on its hash of (rs, qs))."""
     from segalign_tpu_torch.native import ChunkSeeder
     from segalign_tpu_torch.ops.extend_fused import extend_fields_program
     from segalign_tpu_torch.pipeline.device import CONT_W, PAD
+    from segalign_tpu_torch.pipeline.program import HASH_MUL
     al, _, _ = _small_aligner(HBUF=64)
     it, pt = al._host_tables
     # the hits on the host, from the host seeder
@@ -255,23 +295,30 @@ def test_dispatch_rows_returns_candidate_rows_only():
             al._q_fw_host, 0, 20_000, it, pt, al.shape_pos, al.seed_size,
             al.max_hits)
     assert len(ref_loc) > 3 * 64
-    fins = al._dispatch_rows(al._seed_chunk(0, 20_000, False))
-    assert len(fins) == -(-len(ref_loc) // 64)
+    s = al._seed_chunk(0, 20_000, False, into=al._buffers())
+    al._dispatch_rows(s)
+    rows = al._buf.rows[:int(al._buf.n)].numpy()
+    seg = np.searchsorted(s.seg_ends, np.arange(len(ref_loc)),
+                          side="right")
+    want = []
     n_cand = 0
-    for i, fin in enumerate(fins):
-        g0 = 64 * i
+    for g0 in range(0, len(ref_loc), 64):
         r, q = ref_loc[g0:g0 + 64], query_loc[g0:g0 + 64]
-        full = extend_fields_program(
+        full = {k: v.numpy() for k, v in extend_fields_program(
             al.ref_pad, al.q_fw, torch.from_numpy(r), torch.from_numpy(q),
             len(r), al.sub, al.xdrop, al.hspthresh, al.ref_len, al.q_len,
-            pad=PAD, W=al.window, W_CONT=CONT_W)
-        sel = torch.nonzero(full["candidate"]).squeeze(1)
-        assert bool(fin["candidate"].all())
-        assert torch.equal(fin["orig"], g0 + sel)
-        for k in ("rs", "qs", "length", "total", "counts"):
-            assert torch.equal(fin[k], full[k][sel]), k
-        n_cand += len(sel)
-    assert 0 < n_cand < len(ref_loc)
+            pad=PAD, W=al.window, W_CONT=CONT_W).items()}
+        sel = first_of_runs_plain(
+            full["candidate"], full["rs"], full["qs"], full["length"],
+            seg[g0:g0 + 64], key=(full["rs"].astype(np.int64) * HASH_MUL
+                                  + full["qs"]) & 0x7FFFFFFF)
+        assert full["candidate"][sel].all()
+        want.append(np.column_stack(
+            [g0 + sel] + [full[k][sel] for k in ("rs", "qs", "length",
+                                                  "total", "counts")]))
+        n_cand += int(full["candidate"].sum())
+    np.testing.assert_array_equal(rows, np.concatenate(want))
+    assert 0 < len(rows) <= n_cand < len(ref_loc)
 
 
 # ---- the old block goes before the next comes

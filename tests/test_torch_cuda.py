@@ -1422,3 +1422,170 @@ def test_four_processes_over_nccl(dev, tmp_path):
             assert a[1:] == b[1:]
             np.testing.assert_array_equal(a[0], b[0])
         assert not launch_faults(o["launches"])
+
+
+# ---- the native route's programs as CUDA graphs (pipeline/program.py)
+
+def _program_snapshots(al, s, runner):
+    """The native route's programs of a chunk-strand seeded into `al`'s
+    buffers, each run by runner(rev), and (count, candidate rows) after
+    each: _dispatch_rows with its runner swapped."""
+    snaps = []
+
+    def program(rev):
+        run = runner(rev)
+
+        def step(rows):
+            run(rows)
+            n = int(al._buf.n)
+            snaps.append((n, al._buf.rows[:n].cpu()))
+        return step
+
+    al._program = program
+    try:
+        al._dispatch_rows(s)
+    finally:
+        del al._program
+    return snaps
+
+
+@pytest.mark.parametrize("window", [None, (60_000, 140_000)],
+                         ids=["plain", "rm_window"])
+def test_program_graph_replays_equal_the_eager_function(dev, window):
+    """Every program of a chunk-strand of the 0.2 Mbp pair (about 2000
+    hits) at HBUF = 512 (full programs and a partial last one; with an RM
+    window, rows masked in each): the graph's replays give, program after
+    program, the count and the rows of extend_program run eagerly on the
+    card and on the CPU, and launch one K1s and one K4s a replay; the
+    pack's graph gives the block and count of pack_candidates."""
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    from segalign_tpu_torch.pipeline.program import pack_candidates
+    ref, query, qrc, kw, work = _small_pair_work()
+    als = [DeviceAligner(**{**kw, "device": d, "HBUF": 512})
+           for d in (dev, "cpu")]
+    for al in als:
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    for w in work[:4]:
+        seeded = [al._seed_chunk(w.chunk_start, w.chunk_end, w.rev, window,
+                                 into=al._buffers()) for al in als]
+        n_hits = seeded[0].num_hits
+        if n_hits <= 512 or n_hits % 512 == 0:
+            continue
+        since = launch_counts()
+        graphed = _program_snapshots(als[0], seeded[0], als[0]._program)
+        programs = -(-n_hits // 512)
+        _assert_engine_launched(since, ranges=programs)
+        eager = _program_snapshots(
+            als[0], seeded[0], lambda rev: lambda rows: als[0]._program_fn(
+                rev)())
+        # on the CPU a program is sized to its hits
+        plain = _program_snapshots(als[1], seeded[1], als[1]._program)
+        assert len(graphed) == len(eager) == len(plain) == programs
+        for (a, ra), (b, rb), (c, rc) in zip(graphed, eager, plain):
+            assert a == b == c
+            assert torch.equal(ra, rb) and torch.equal(ra, rc)
+        assert graphed[-1][0] > 0
+        # the pack: its graph's replay, the function on the card, the CPU
+        packs = [als[0]._pack(),
+                 pack_candidates(als[0]._buf, als[0]._kept_rows),
+                 als[1]._pack()]
+        kept = [int(c[0]) for _, c in packs]
+        assert kept[0] == kept[1] == kept[2] > 0
+        for out, counts in packs:
+            assert torch.equal(counts.cpu(), packs[2][1])
+            assert torch.equal(out[:kept[0]].cpu(), packs[2][0][:kept[0]])
+        return
+    pytest.fail("no chunk-strand with full programs and a partial last one")
+
+
+def test_programs_and_pack_make_no_host_sync_on_the_card(dev):
+    """A chunk-strand's programs (graph replays) and its pack under
+    torch.cuda.set_sync_debug_mode("error") raise nothing, the first
+    capture inside the window too; the finisher's fetch then gives the
+    CPU's HSPs."""
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    ref, query, qrc, kw, work = _small_pair_work()
+    als = [DeviceAligner(**{**kw, "device": d}) for d in (dev, "cpu")]
+    for al in als:
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    n = 0
+    for w in work[:6]:
+        want = als[1].seed_and_filter(w.chunk_start, w.chunk_end, w.rev)
+        s = als[0]._seed_chunk(w.chunk_start, w.chunk_end, w.rev,
+                               into=als[0]._buffers())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p = als[0]._extend_seeded(s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = als[0].finish_chunk(p)
+        np.testing.assert_array_equal(got.hsps, want.hsps)
+        n += len(want.hsps)
+    assert n > 0 and set(als[0]._graphs) == {False, True, "pack"}
+
+
+def test_two_aligners_capture_and_replay_on_two_threads(dev):
+    """Two aligners on one card, each on a thread of its own, started
+    together: both capture their graphs (a program's of each strand, and
+    the pack's) at once and replay them, and each gives one aligner's
+    arrays, launching one K1s and one K4s a program."""
+    import threading
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    ref, query, qrc, kw, work = _small_pair_work()
+    one = DeviceAligner(**kw)
+    pair = [DeviceAligner(**kw) for _ in range(2)]
+    for al in (one, *pair):
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    want = one.map_chunks(work)
+    start = threading.Barrier(2)
+    got, errors = [None, None], []
+
+    def run(i):
+        try:
+            torch.cuda.set_device(0)
+            start.wait()
+            got[i] = pair[i].map_chunks(work)
+        except Exception as e:   # raised below, in the test's thread
+            errors.append(e)
+
+    since = launch_counts()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    programs = sum(-(-r.num_hits // pair[0].HBUF) for r in want)
+    _assert_engine_launched(since, ranges=2 * programs)
+    for g in got:
+        _assert_same_results(g, want)
+    assert all(set(al._graphs) == {False, True, "pack"} for al in pair)
+
+
+def test_a_buffer_of_one_row_extends_again_on_the_card(dev):
+    """A candidate buffer of one row on the card: the finisher extends
+    each chunk-strand that passes it again, into a grown buffer with its
+    graphs captured anew (in a memory pool of their own: the old graphs'
+    pool takes no capture once they have gone), and every chunk-strand's
+    HSPs equal the CPU's; the launches count each program's two
+    replays."""
+    from segalign_tpu_torch.pipeline.device import DeviceAligner
+    ref, query, qrc, kw, work = _small_pair_work()
+    als = [DeviceAligner(**{**kw, "device": d}) for d in (dev, "cpu")]
+    for al in als:
+        al.set_ref(ref)
+        al.set_query(query, qrc)
+    als[0]._cand_rows = 1
+    since = launch_counts()
+    got = als[0].map_chunks(work)
+    want = als[1].map_chunks(work)
+    _assert_same_results(got, want)
+    again = [r.reextended for r in got]
+    assert again[0] == 1 and sum(again) >= 1
+    programs = sum(-(-r.num_hits // als[0].HBUF) * (1 + r.reextended)
+                   for r in got)
+    _assert_engine_launched(since, ranges=programs)

@@ -30,7 +30,8 @@ from segalign_tpu_torch import bench_inputs  # noqa: E402
 from segalign_tpu_torch.io.blocks import build_arena  # noqa: E402
 from segalign_tpu_torch.io.fasta import read_fasta  # noqa: E402
 from segalign_tpu_torch.parallel.multi import MultiDeviceAligner  # noqa
-from segalign_tpu_torch.pipeline.device import _pack_compact  # noqa: E402
+from segalign_tpu_torch.pipeline.program import (  # noqa: E402
+    Buffers, append_candidates, pack_candidates)
 
 # sha256 of the (ref, query) FASTAs of write_scale_inputs(name) with both
 # genomes drawn at 0.2 Mbp: each family's generator and record layout
@@ -284,15 +285,17 @@ def test_pack_keeps_candidates_at_every_block_position(base):
     ln = rng.integers(1, 40, k)[ext]
     cand = rng.random(n) < 0.7
     seg_ends = np.array([200, 400], np.int64)
-    fins = []
+    buf = Buffers(1, 2, n, "cpu")
+    buf.seg_ends.copy_(torch.from_numpy(seg_ends))
     for part in np.array_split(np.arange(n), 3):
         t = lambda a: torch.from_numpy(a[part].astype(np.int32))
-        fins.append(dict(candidate=torch.from_numpy(cand[part]),
-                         orig=torch.from_numpy(part), rs=t(rs), qs=t(qs),
-                         length=t(ln), total=t(qs + 7),
-                         counts=torch.from_numpy(np.stack(
-                             [ln[part]] * 4, 1).astype(np.int32))))
-    out = _pack_compact(fins, torch.from_numpy(seg_ends)).numpy()
+        append_candidates(buf, dict(
+            candidate=torch.from_numpy(cand[part]), rs=t(rs), qs=t(qs),
+            length=t(ln), total=t(qs + 7), counts=torch.from_numpy(
+                np.stack([ln[part]] * 4, 1).astype(np.int32))),
+            t(np.arange(n)))
+    out, counts = pack_candidates(buf, n)
+    out = out[:int(counts[0])].numpy()
     seg = np.searchsorted(seg_ends, np.arange(n), side="right")
     want = _plain_pack(cand, rs, qs, ln, seg)
     np.testing.assert_array_equal(out[:, 0], want)

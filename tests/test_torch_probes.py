@@ -52,6 +52,7 @@ def test_scale2_plain_matches_interpreted_kernel(shape):
     ("probe_env", ["dispatch", "pallas"]),
     ("probe_extension", ["gather", "overhead"]),
     ("path_walls", ["tree"]),
+    ("program_walls", ["tree"]),
     ("k1s_rows", ["tree"]),
     ("k4s_rows", ["tree"]),
 ])
@@ -64,3 +65,27 @@ def test_script_fails_without_cuda(script, argv):
     assert r.returncode != 0
     assert "torch.cuda.is_available() is false" in r.stderr
     assert r.stdout == ""
+
+
+def test_program_walls_summarizes_a_cells_runs(tmp_path):
+    """program_walls --summarize on saved cell outputs, P C C P C: each
+    label's values in run order, median, quartiles, largest three-run
+    move, peaks, and the pairs of runs next to each other each won."""
+    import json
+    from segalign_tpu_torch.scripts.program_walls import summarize
+    paths = []
+    for i, (lab, v, peak) in enumerate([("P", 10.0, 0.2), ("C", 15.0, 0.17),
+                                        ("C", 18.0, 0.17), ("P", 12.0, 0.2),
+                                        ("P", 11.0, 0.2), ("C", 16.0, 0.17)],
+                                       1):
+        p = tmp_path / f"cell-a_{lab}_{i}.txt"
+        p.write_text("some output\n" + json.dumps(dict(
+            query_mbp_per_s=v, peak_device_gib=peak, correct=True)) + "\n")
+        paths.append(str(p))
+    got = summarize(paths)["cell-a"]
+    assert got["P"]["values"] == [10.0, 12.0, 11.0]
+    assert got["C"]["values"] == [15.0, 18.0, 16.0]
+    assert got["P"]["median"] == 11.0 and got["C"]["median"] == 16.0
+    assert got["P"]["largest_3run_move"] == round(2 / 11, 4)
+    assert got["C"]["peaks_gib"] == [0.17] and got["C"]["correct"]
+    assert got["pairs_won"] == {"C": 3, "P": 0}
