@@ -391,6 +391,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "scripts", "run_segalign")
 TOP = 5  # device ops and idle gaps a profile lists
+STAGE_TOP = 8  # device ops a profile lists for each host stage
 
 
 @contextlib.contextmanager
@@ -465,10 +466,12 @@ def summarize_profile(events, spans, start, end) -> dict:
     idle gaps, each named by the host stage that covered most of it ("no
     stage": the host was between stages, in the pipeline's own code;
     nrange is a count, not a time, and names none), each main-path
-    kernel's device ms and launches (`kernels`, by launch counter), and
-    the device ms of the ops queued while each stage's span was open
+    kernel's device ms and launches (`kernels`, by launch counter), the
+    device ms of the ops queued while each stage's span was open
     (`stage_device_ms`; `launch_linked`: the share of device ops whose
-    launch the trace gave)."""
+    launch the trace gave) and those ops by name (`stage_ops`: each
+    stage's STAGE_TOP ops by device ms with their calls, then the rest in
+    one row, so that a stage's rows sum to its stage_device_ms)."""
     events = [(ev[0], ev[1], ev[2], ev[3] if len(ev) > 3 else None)
               for ev in events]
     iv = sorted((max(s, start), min(e, end)) for s, e, _, _ in events
@@ -489,7 +492,7 @@ def summarize_profile(events, spans, start, end) -> dict:
     gaps.sort(key=lambda g: g[0] - g[1])
     ops = {}
     kernels = {k: dict(ms=0.0, launches=0) for k, _ in TRACE_KERNELS}
-    stage_ms, linked = {}, 0
+    stage_ms, stage_ops, linked = {}, {}, 0
     stage_at = _stage_of(spans)
     for s, e, name, launch in events:
         ms, n = ops.get(name, (0.0, 0))
@@ -503,6 +506,9 @@ def summarize_profile(events, spans, start, end) -> dict:
             stage = stage_at(launch)
             if stage is not None:
                 stage_ms[stage] = stage_ms.get(stage, 0.0) + (e - s) / 1e6
+                by = stage_ops.setdefault(stage, {})
+                ms, n = by.get(name, (0.0, 0))
+                by[name] = (ms + (e - s) / 1e6, n + 1)
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP]
     named = []
     for g0, g1 in gaps[:TOP]:
@@ -528,8 +534,23 @@ def summarize_profile(events, spans, start, end) -> dict:
                          for k, v in kernels.items()},
                 stage_device_ms={k: round(v, 4)
                                  for k, v in sorted(stage_ms.items())},
+                stage_ops={k: _top_rows(v)
+                           for k, v in sorted(stage_ops.items())},
                 launch_linked=(round(linked / len(events), 4) if events
                                else None))
+
+
+def _top_rows(ops: dict) -> list:
+    """{name: (ms, calls)} as rows by device ms: the STAGE_TOP first, then
+    the others summed into one row named by their count."""
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][0])
+    rest = rows[STAGE_TOP:]
+    if rest:
+        rows = rows[:STAGE_TOP] + [(
+            f"({len(rest)} other ops)", (sum(ms for _, (ms, _) in rest),
+                                         sum(n for _, (_, n) in rest)))]
+    return [dict(name=k[:160], ms=round(ms, 4), calls=n)
+            for k, (ms, n) in rows]
 
 
 def is_launch(name: str) -> bool:
@@ -1145,6 +1166,10 @@ def run_cell(name: str, seed: int, device) -> dict:
             print(f"breakdown idle: {g['ms']:.3f} ms at {g['at_ms']:.3f} ms "
                   f"in {g['stage']} ({g['covered']:.0%} covered)",
                   flush=True)
+        for stage, rows in prof["stage_ops"].items():
+            for op in rows:
+                print(f"breakdown stage op: {stage}: {op['ms']:.3f} ms in "
+                      f"{op['calls']} calls {op['name']}", flush=True)
     for f in failures:
         print(f"gate: {c.name}: {f}", file=sys.stderr, flush=True)
     detail = dict(

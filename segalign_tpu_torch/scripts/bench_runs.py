@@ -3,7 +3,7 @@ every workload of BENCHMARK.json, in its order, by its own command, in a
 process of its own.
 
     python -m segalign_tpu_torch.scripts.bench_runs [--runs 3]
-        [--cells NAME,...] [--out DIR] [--summarize RUNS_JSONL]
+        [--cells NAME,...] [--out DIR] [--summarize RUNS_JSONL ...]
         [-- ARG ...]
 
 `--cells` may name the file's left_out cells too, in the order given.
@@ -16,11 +16,11 @@ script exits 1 if any failed.
 
 At the end it prints, for each cell and metric, the value of every run,
 their spread (max - min over the median) and the move of every three
-runs in a row, and for each metric the bound by the file's rule: the
-smallest of 5, 10 or 15% that covers the largest three-run move of any
-cell, every three runs in a row counted (a cell that moves more is
-named: it needs more passes, or it is not admitted), with each run's
-wall in all and each cell's. For each run of any cell it prints each
+runs in a row, and for each metric the bound within the call: the
+smallest of 5, 10 or 15% that covers the largest three-run move of the
+cells within every metric's limit (15%, the peak's 5%), every three
+runs in a row counted, with the cells past the limit named; and each
+run's wall in all and each cell's. For each run of any cell it prints each
 process's peak device memory, reserved (the metric's) and allocated
 (peaks). For each run of a pair cell (whose detail lists its processes)
 it prints each process's level (the median of its timed passes' seconds)
@@ -29,8 +29,13 @@ spread between the processes' levels against the median spread inside
 them. For each cell it prints how much of its runs' spread no number of
 processes or passes in a run can average away (shared), and each of its
 per-layer metrics over its runs (layer_ranges).
-`--summarize` runs nothing and prints the summary of the runs an earlier
-call recorded in its runs.jsonl (one cut at its time limit, say).
+Then it applies the file's admission rule over the calls (admission):
+for each cell each call's largest three-run move of each metric against
+its limit, and whether it is admitted (two calls of ten runs of it, every
+run of each call correct, every move within its limit); last, as one
+JSON line, the admitted cells and each metric's bound over their moves.
+`--summarize` runs nothing and does the same for the runs that earlier
+calls recorded, one runs.jsonl a call (one cut at its time limit, say).
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ from statistics import median, stdev
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BOUNDS = (0.05, 0.10, 0.15)
+LIMITS = dict(peak_device_gib=0.05)  # limit(): 15% for any other metric
+RULE_CALLS, RULE_RUNS = 2, 10  # the calls a cell is admitted on, runs each
 
 
 def run_cell(command: list, out_base: str) -> dict:
@@ -69,11 +76,27 @@ def run_cell(command: list, out_base: str) -> dict:
     return dict(rc=rc, wall_s=round(wall, 2), line=line, detail=detail)
 
 
+def limit(metric: str) -> float:
+    """The most a metric of an admitted cell may move over three runs in a
+    row: 5% for the peak, 15% for the rest."""
+    return LIMITS.get(metric, BOUNDS[-1])
+
+
+def bound_of(moves) -> dict:
+    """The smallest of BOUNDS that covers every move (None where one moves
+    past 15%, or where moves is None: no cell counts) and the largest."""
+    if moves is None:
+        return dict(bound=None, largest_move=None)
+    worst = max(moves, default=0.0)
+    return dict(bound=next((b for b in BOUNDS if worst <= b), None),
+                largest_move=round(worst, 4))
+
+
 def summarize(results: list, metrics: dict) -> dict:
-    """{cell: {metric: (values by run, move)}}, move the largest spread of
-    three runs in a row (of all of them where fewer), and, by metric, the
-    bound that covers every move (None when one moves more than 15%) with
-    the cells over it."""
+    """One call's runs: {cell: {metric: (values by run, move)}}, move the
+    largest spread of three runs in a row (of all of them where fewer),
+    and, by metric, the cells over its limit and the bound over the cells
+    within every metric's limit (bound_of)."""
     table = {}
     for r in results:
         line = r["line"] or {}
@@ -81,18 +104,62 @@ def summarize(results: list, metrics: dict) -> dict:
             if line.get(m) is not None:
                 table.setdefault(r["cell"], {}).setdefault(m, []).append(
                     line[m])
-    out, bounds = {}, {}
+    out = {}
     for cell, ms in table.items():
         for m, vals in ms.items():
             out.setdefault(cell, {})[m] = (vals, max(threes(vals)))
-    for m in metrics:
-        moves = {c: v[m][1] for c, v in out.items() if m in v}
-        worst = max(moves.values(), default=0.0)
-        bounds[m] = dict(
-            bound=next((b for b in BOUNDS if worst <= b), None),
-            largest_move=round(worst, 4),
-            over=[c for c, mv in moves.items() if mv > BOUNDS[-1]])
+    over = {m: [c for c, v in out.items() if m in v and v[m][1] > limit(m)]
+            for m in metrics}
+    within = [c for c in out if not any(c in o for o in over.values())]
+    bounds = {m: dict(bound_of([out[c][m][1] for c in within
+                                if m in out[c]] if within else None),
+                      over=over[m]) for m in metrics}
     return dict(cells=out, bounds=bounds)
+
+
+def correct(r: dict) -> bool:
+    """Whether a recorded run exited 0 with a correct result line."""
+    return r["rc"] == 0 and bool((r["line"] or {}).get("correct"))
+
+
+def admission(calls: list, metrics: dict) -> dict:
+    """The file's rule over calls, each the runs of one call as its
+    runs.jsonl records them: a cell is admitted when there are RULE_CALLS
+    calls, each with RULE_RUNS runs of it, every run of the call correct,
+    and every metric of it within its limit over every three runs in a
+    row. {cells: {cell: dict(moves=[{metric: move} by call], why=[what
+    keeps it out])}, admitted, bounds: {metric: bound_of the admitted
+    cells' moves in every call}}."""
+    sums = [summarize(c, metrics) for c in calls]
+    cells = {}
+    for cell in dict.fromkeys(r["cell"] for c in calls for r in c):
+        moves, why = [], []
+        if len(calls) < RULE_CALLS:
+            why.append(f"{len(calls)} call(s) of the {RULE_CALLS} the rule "
+                       f"asks")
+        for i, (c, s) in enumerate(zip(calls, sums), 1):
+            bad = [(r["run"], r["cell"]) for r in c if not correct(r)]
+            if bad:
+                why.append(f"call {i}: runs not correct, so the call admits "
+                           f"nothing: {bad}")
+            n = sum(r["cell"] == cell for r in c)
+            if n < RULE_RUNS:
+                why.append(f"call {i}: {n} runs of the {RULE_RUNS}")
+            got = {m: v[1] for m, v in s["cells"].get(cell, {}).items()}
+            moves.append(got)
+            for m in metrics:
+                if m not in got:
+                    why.append(f"call {i}: {m} not measured")
+                elif got[m] > limit(m):
+                    why.append(f"call {i}: {m} moved {100 * got[m]:.2f}% "
+                               f"over three runs in a row, past "
+                               f"{100 * limit(m):.0f}%")
+        cells[cell] = dict(moves=moves, why=why)
+    admitted = [c for c, v in cells.items() if not v["why"]]
+    bounds = {m: bound_of([mv[m] for c in admitted
+                           for mv in cells[c]["moves"]] if admitted
+                          else None) for m in metrics}
+    return dict(cells=cells, admitted=admitted, bounds=bounds)
 
 
 def spread(vals: list) -> float:
@@ -189,56 +256,11 @@ def where(proc: dict) -> str:
             f"{card('after')}")
 
 
-def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    extra = []
-    if "--" in argv:
-        i = argv.index("--")
-        argv, extra = argv[:i], argv[i + 1:]
-    p = argparse.ArgumentParser(prog="bench_runs")
-    p.add_argument("--runs", type=int, default=3)
-    p.add_argument("--cells", help="comma-separated cells (default the "
-                                   "admitted ones, the file's workloads)")
-    p.add_argument("--out", default=os.path.join(ROOT, "build",
-                                                 "bench_runs"))
-    p.add_argument("--summarize", metavar="RUNS_JSONL",
-                   help="run nothing: print the summary of the runs this "
-                        "file records (a runs.jsonl of an earlier call)")
-    args = p.parse_args(argv)
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        bench = json.load(f)
-    work = bench["workloads"]
-    if args.cells:
-        names = args.cells.split(",")
-        known = {w["name"]: w for w in work + bench.get("left_out", [])}
-        unknown = set(names) - set(known)
-        if unknown:
-            p.error(f"no such cells: {sorted(unknown)}")
-        work = [known[n] for n in names]
-    if not work and not args.summarize:
-        p.error("BENCHMARK.json admits no cell: name cells with --cells")
-    os.makedirs(args.out, exist_ok=True)
-    results = []
-    if args.summarize:
-        with open(args.summarize) as f:
-            results = [json.loads(ln) for ln in f if ln.strip()]
-        work = []
-    with open(os.path.join(args.out, "runs.jsonl"), "a") as log:
-        for run in range(args.runs if work else 0):
-            t0 = time.time()
-            for w in work:
-                r = run_cell(shlex.split(w["command"]) + extra,
-                             os.path.join(args.out,
-                                          f"run{run}_{w['name']}"))
-                r.update(run=run, cell=w["name"])
-                results.append(r)
-                log.write(json.dumps(r) + "\n")
-                log.flush()
-                print(f"run {run} {w['name']}: rc {r['rc']}, "
-                      f"{r['wall_s']} s, {r['line']}", flush=True)
-            print(f"run {run}: {time.time() - t0:.1f} s for "
-                  f"{len(work)} cells", flush=True)
-    s = summarize(results, bench["metrics"])
+def report(results: list, metrics: dict):
+    """Print one call's summary: each cell's values and moves, each run's
+    walls, peaks and process levels, each cell's shared share and
+    per-layer metrics, and the bounds within the call."""
+    s = summarize(results, metrics)
     for cell, ms in s["cells"].items():
         for m, (vals, move) in ms.items():
             print(f"{cell} {m}: {vals} (spread {100 * spread(vals):.2f}% "
@@ -278,11 +300,84 @@ def main(argv=None):
                   flush=True)
         for k, (lo, mid, hi) in layer_ranges(results, cell).items():
             print(f"{cell} layer {k}: {lo}-{hi} [{mid}]", flush=True)
-    print(json.dumps(s["bounds"]), flush=True)
-    failed = [(r["run"], r["cell"]) for r in results
-              if r["rc"] != 0 or not (r["line"] or {}).get("correct")]
+    print(f"bounds within the call: {json.dumps(s['bounds'])}", flush=True)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    extra = []
+    if "--" in argv:
+        i = argv.index("--")
+        argv, extra = argv[:i], argv[i + 1:]
+    p = argparse.ArgumentParser(prog="bench_runs")
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--cells", help="comma-separated cells (default the "
+                                   "admitted ones, the file's workloads)")
+    p.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                 "bench_runs"))
+    p.add_argument("--summarize", nargs="+", metavar="RUNS_JSONL",
+                   help="run nothing: print the summary of the runs these "
+                        "files record (the runs.jsonl of earlier calls, "
+                        "one a call) and the rule's verdict over them")
+    args = p.parse_args(argv)
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    metrics = bench["metrics"]
+    work = bench["workloads"]
+    if args.cells:
+        names = args.cells.split(",")
+        known = {w["name"]: w for w in work + bench.get("left_out", [])}
+        unknown = set(names) - set(known)
+        if unknown:
+            p.error(f"no such cells: {sorted(unknown)}")
+        work = [known[n] for n in names]
+    if args.summarize:
+        calls = []
+        for path in args.summarize:
+            with open(path) as f:
+                calls.append([json.loads(ln) for ln in f if ln.strip()])
+    else:
+        if not work:
+            p.error("BENCHMARK.json admits no cell: name cells with "
+                    "--cells")
+        os.makedirs(args.out, exist_ok=True)
+        results = []
+        calls = [results]
+        with open(os.path.join(args.out, "runs.jsonl"), "a") as log:
+            for run in range(args.runs):
+                t0 = time.time()
+                for w in work:
+                    r = run_cell(shlex.split(w["command"]) + extra,
+                                 os.path.join(args.out,
+                                              f"run{run}_{w['name']}"))
+                    r.update(run=run, cell=w["name"])
+                    results.append(r)
+                    log.write(json.dumps(r) + "\n")
+                    log.flush()
+                    print(f"run {run} {w['name']}: rc {r['rc']}, "
+                          f"{r['wall_s']} s, {r['line']}", flush=True)
+                print(f"run {run}: {time.time() - t0:.1f} s for "
+                      f"{len(work)} cells", flush=True)
+    for i, results in enumerate(calls, 1):
+        print(f"call {i}: {len(results)} runs", flush=True)
+        report(results, metrics)
+    adm = admission(calls, metrics)
+    for cell, v in adm["cells"].items():
+        for i, mv in enumerate(v["moves"], 1):
+            moved = ", ".join(f"{m} {100 * x:.2f}% (limit "
+                              f"{100 * limit(m):.0f}%)"
+                              for m, x in mv.items())
+            print(f"{cell} call {i}: largest three-run move {moved}",
+                  flush=True)
+        print(f"{cell}: " + ("; ".join(["not admitted"] + v["why"])
+                             if v["why"] else "admitted"), flush=True)
+    print(json.dumps(dict(admitted=adm["admitted"], bounds=adm["bounds"])),
+          flush=True)
+    failed = [(i, r["run"], r["cell"]) for i, results in enumerate(calls, 1)
+              for r in results if not correct(r)]
     if failed:
-        print(f"failed: {failed}", file=sys.stderr, flush=True)
+        print(f"failed (call, run, cell): {failed}", file=sys.stderr,
+              flush=True)
         return 1
     return 0
 

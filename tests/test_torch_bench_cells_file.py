@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from segalign_tpu_torch import bench, bench_cells, bench_inputs
 from segalign_tpu_torch.io.encode import revcomp_codes
@@ -26,6 +27,23 @@ import torch_bench_goldens  # noqa: E402  (imports the JAX package)
 
 CELL = "pair-repeat1x-4M-native"
 TINY_MBP = 0.05
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """torch's ops on at most four threads, here and in the cells' worker
+    processes (OMP_NUM_THREADS): the tiny cell's tensors are small, and a
+    larger pool per op only waits on its own threads when the CPU is
+    shared."""
+    old, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(min(old, 4))
+    os.environ["OMP_NUM_THREADS"] = str(min(old, 4))
+    yield
+    torch.set_num_threads(old)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 
 
 @pytest.fixture(scope="module")

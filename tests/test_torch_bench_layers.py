@@ -225,6 +225,40 @@ def test_profile_by_kernel_and_by_stage():
     assert not bench.is_launch("bench_pass_start")
 
 
+def test_profile_ops_by_stage(monkeypatch):
+    """Each stage's device ops by name, from the same launches as its
+    stage_device_ms: the STAGE_TOP first by device ms with their calls,
+    the rest in one row, so that a stage's rows sum to its device ms; an
+    op launched outside every span, or not linked, is in no stage."""
+    monkeypatch.setattr(bench, "STAGE_TOP", 2)
+    ms = 1_000_000
+    sort, scan = "void cub::DeviceRadixSortOnesweepKernel", "cumsum_kernel"
+    k1s = "first_scan_seq_kernel(unsigned char const*, long)"
+    events = [(10 * ms, 13 * ms, sort, 1 * ms),
+              (13 * ms, 14 * ms, scan, 2 * ms),
+              (14 * ms, 16 * ms, sort, 3 * ms),
+              (16 * ms, 16 * ms + ms // 2, "fill", 3 * ms),
+              (17 * ms, 17 * ms + ms // 4, "copy", 3 * ms),
+              (20 * ms, 26 * ms, k1s, 5 * ms),
+              (27 * ms, 28 * ms, scan, 6 * ms),
+              (30 * ms, 31 * ms, "Memcpy DtoH (Device -> Pinned)", None),
+              (32 * ms, 33 * ms, "idle launch", 45 * ms)]
+    spans = [("seeds", 0, 4 * ms), ("extend", 4 * ms, 10 * ms),
+             ("nrange", 0, 10 * ms)]
+    s = bench.summarize_profile(events, spans, 0, 50 * ms)
+    assert s["stage_ops"] == {
+        "seeds": [dict(name=sort, ms=5.0, calls=2),
+                  dict(name=scan, ms=1.0, calls=1),
+                  dict(name="(2 other ops)", ms=0.75, calls=2)],
+        "extend": [dict(name=k1s, ms=6.0, calls=1),
+                   dict(name=scan, ms=1.0, calls=1)]}
+    for stage, rows in s["stage_ops"].items():
+        assert sum(r["ms"] for r in rows) == pytest.approx(
+            s["stage_device_ms"][stage])
+    assert s["stage_device_ms"] == {"seeds": 6.75, "extend": 7.0}
+    assert bench.summarize_profile([], spans, 0, ms)["stage_ops"] == {}
+
+
 def record(cell_kind="pair", profile=True):
     """A run's record as bench._pair_cell / _cli_cell return it."""
     prof = None
@@ -279,6 +313,109 @@ def test_bounds_count_every_three_runs_in_a_row():
     assert s["bounds"]["query_mbp_per_s"]["bound"] is None
     assert s["bounds"]["query_mbp_per_s"]["over"] == ["a"]
     assert bench_runs.threes([1.0, 1.04]) == [pytest.approx(0.04 / 1.02)]
+
+
+def rule_runs(cell, rates, peaks=None, ok=True):
+    """A call's runs of one cell as runs.jsonl records them."""
+    peaks = peaks or [0.26] * len(rates)
+    return [dict(run=i, cell=cell, rc=0, line=dict(
+        query_mbp_per_s=v, peak_device_gib=g, correct=ok))
+        for i, (v, g) in enumerate(zip(rates, peaks))]
+
+
+RULE_METRICS = dict(query_mbp_per_s={}, peak_device_gib={})
+STILL = [20.0, 21.0, 20.5, 19.8, 21.2, 20.1, 20.9, 20.0, 21.5, 20.4]
+
+
+def test_rule_admits_a_cell_that_holds_in_both_calls():
+    """Two calls of ten runs, each three runs in a row within 15% (the
+    largest 14.14%, so the bound is 15%) and the peak within 5%: admitted,
+    and each call's largest move is given."""
+    b = STILL[:5] + [18.4, 20.6] + STILL[7:]
+    calls = [rule_runs("c", STILL), rule_runs("c", b)]
+    a = bench_runs.admission(calls, RULE_METRICS)
+    assert a["admitted"] == ["c"] and a["cells"]["c"]["why"] == []
+    moves = [m["query_mbp_per_s"] for m in a["cells"]["c"]["moves"]]
+    assert moves == [pytest.approx(max(bench_runs.threes(v)))
+                     for v in (STILL, b)]
+    assert moves[1] == pytest.approx(2.8 / 19.8) and moves[1] > 0.10
+    assert a["bounds"]["query_mbp_per_s"] == dict(
+        bound=0.15, largest_move=round(moves[1], 4))
+    assert a["bounds"]["peak_device_gib"] == dict(bound=0.05,
+                                                  largest_move=0.0)
+
+
+def test_rule_refuses_one_three_run_move_in_one_call():
+    """One three runs in a row past 15% in one call keeps the cell out,
+    though the other call and every other three hold; so do fewer than
+    ten runs, one call alone, and a run that is not correct, which admits
+    nothing on its call."""
+    b = STILL[:4] + [19.0, 20.5, 22.2] + STILL[7:]
+    a = bench_runs.admission([rule_runs("c", STILL), rule_runs("c", b)],
+                             RULE_METRICS)
+    assert a["admitted"] == [] and len(a["cells"]["c"]["why"]) == 1
+    assert a["cells"]["c"]["why"][0] == (
+        "call 2: query_mbp_per_s moved 15.61% over three runs in a row, "
+        "past 15%")
+    assert sum(t > 0.15 for t in bench_runs.threes(b)) == 1
+    assert a["bounds"]["query_mbp_per_s"] == dict(bound=None,
+                                                  largest_move=None)
+    for calls in ([rule_runs("c", STILL)],
+                  [rule_runs("c", STILL), rule_runs("c", STILL[:9])],
+                  [rule_runs("c", STILL), rule_runs("c", STILL)
+                   + rule_runs("d", STILL, ok=False)]):
+        a = bench_runs.admission(calls, RULE_METRICS)
+        assert a["admitted"] == [], calls
+
+
+def test_rule_refuses_a_peak_that_moves_6_percent():
+    """The peak's limit is 5%: a reserved peak that moves 6% over three
+    runs in a row keeps the cell out, and within one call it is named
+    over its limit where the rate's 15% would let it pass."""
+    peaks = [0.25] * 4 + [0.265] + [0.25] * 5
+    calls = [rule_runs("c", STILL), rule_runs("c", STILL, peaks)]
+    a = bench_runs.admission(calls, RULE_METRICS)
+    assert a["admitted"] == []
+    assert a["cells"]["c"]["moves"][1]["peak_device_gib"] == \
+        pytest.approx(0.06)
+    assert a["cells"]["c"]["why"] == [
+        "call 2: peak_device_gib moved 6.00% over three runs in a row, "
+        "past 5%"]
+    s = bench_runs.summarize(calls[1], RULE_METRICS)
+    assert s["bounds"]["peak_device_gib"]["over"] == ["c"]
+    assert s["bounds"]["query_mbp_per_s"] == dict(
+        bound=None, largest_move=None, over=[])
+
+
+def test_rule_bound_over_the_admitted_cells_only(tmp_path, capsys):
+    """With one of two cells out, each bound is set over the admitted
+    one's moves alone: the cell out does not leave it None, nor widen
+    it. --summarize reads a runs.jsonl a call and prints each cell's
+    verdict and, last, the admitted cells and the bounds."""
+    tight = [20.0, 20.2, 20.4] * 3 + [20.0]
+    wild = STILL[:3] + [14.0] + STILL[4:]
+    calls = [rule_runs("a", tight) + rule_runs("b", STILL),
+             rule_runs("a", tight) + rule_runs("b", wild)]
+    a = bench_runs.admission(calls, RULE_METRICS)
+    assert a["admitted"] == ["a"]
+    assert a["bounds"]["query_mbp_per_s"] == dict(bound=0.05,
+                                                  largest_move=0.0198)
+    paths = []
+    for i, runs in enumerate(calls):
+        paths.append(str(tmp_path / f"runs{i}.jsonl"))
+        with open(paths[-1], "w") as f:
+            f.writelines(json.dumps(dict(r, wall_s=1.0, detail=None)) + "\n"
+                         for r in runs)
+    assert bench_runs.main(["--summarize", *paths,
+                            "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "a: admitted" in out
+    assert any(ln.startswith("b: not admitted; call 2: query_mbp_per_s")
+               for ln in out)
+    assert ("b call 1: largest three-run move query_mbp_per_s "
+            f"{100 * max(bench_runs.threes(STILL)):.2f}% (limit 15%), "
+            "peak_device_gib 0.00% (limit 5%)") in out
+    assert json.loads(out[-1]) == dict(admitted=["a"], bounds=a["bounds"])
 
 
 def test_process_levels_and_spreads():
